@@ -7,13 +7,14 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 It builds the three DP kernels from porechop_tpu_torch/csrc/, holds each
 against its plain PyTorch version on the card at the shapes the trimming
 path gives it (and times both), then runs the default trimming path end to
-end through porechop_tpu_torch.cli.main on 8,192 synthetic 10 kb reads at
--v 0 and at -v 1, requires the output FASTQ and the stdout transcript to
-equal the JAX package's (by SHA-256), and requires every kernel to have
-been launched by that run.  The last line of stdout is the result:
-{"ok": true, "device": {...}}; before it, one {"kernels": [...]} line.
-Any failure raises and exits non-zero without a result line.  It writes
-only under build/ (kernels and the work directory build/smoke/).
+end through porechop_tpu_torch.cli.main at -v 0 and at -v 1 on two inputs:
+8,192 synthetic 10 kb reads, and the long-read set (2,560 reads of 8-200
+kb, read N50 40 kb).  Each run must write the output FASTQ and the stdout
+transcript of the JAX package (by SHA-256) and launch every kernel.  The
+last line of stdout is the result: {"ok": true, "device":
+{...}}; before it, one {"kernels": [...]} line.  Any failure raises and
+exits non-zero without a result line.  It writes only under build/
+(kernels and the work directories build/smoke/ and build/smoke/long/).
 """
 
 import contextlib
@@ -47,6 +48,17 @@ OUT_SHA = {0: 'dac6f1bd4d13931723679798e659c3ff90b362025bab3db379daadc21268a844'
            1: 'dac6f1bd4d13931723679798e659c3ff90b362025bab3db379daadc21268a844'}
 STDOUT_SHA = {0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
               1: '50d6c2089023d2541f402d35df92ab07f33e65e061432f866a89ef56a81b2443'}
+# The same for the long-read set, reads.fastq =
+# write_fastq(synth_mixed(LONG_READ_PARTS)) (porechop_tpu_torch/utils/
+# synth.py), recorded the same way.
+LONG_READS_SHA = (
+    '3a80e71f8887dc240c3acc7627de9c02de948c8298ab0b336e27b9381f8a998b')
+LONG_OUT_SHA = {
+    0: 'aa2685515caa699d4fb3fb7a5f2ec7b9872c7a246115d6799737b3a33119477a',
+    1: 'aa2685515caa699d4fb3fb7a5f2ec7b9872c7a246115d6799737b3a33119477a'}
+LONG_STDOUT_SHA = {
+    0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+    1: 'a8a742bcc6ad75e46a8c31551a8425707fb3b17f23215660c373fb3572f7dd70'}
 
 SCHEME = (3, -6, -5, -2)
 # H100 SXM: 3.35 TB/s of HBM3; 64 INT32 lanes per SM per clock x 132 SMs x
@@ -56,9 +68,9 @@ INT32_OPS = 64 * 132 * 1.98e9
 # Minimal int32 operations per DP cell, counted from the recurrences with
 # no fusion: score = 2 adds + max (V), select + add (diagonal), max (pre),
 # 2 adds + max (next H), max (M) = 10; stats adds the payload selects and
-# adds (6); bitmap adds four compares and four ors for the trace byte (8).
+# adds (6); the trace byte adds four compares and four ors (8).
 OPS_PER_CELL = {'forward_score': 10, 'forward_stats': 16,
-                'forward_bitmap': 18}
+                'forward_tiled': 18}
 
 KERNELS = {
     'forward_score': dict(
@@ -75,12 +87,17 @@ KERNELS = {
         shapes=[('detection group max', 16384, 150, 24),
                 ('detection group max', 16384, 150, 48),
                 ('middle survivors', 1024, 10240, 32)]),
-    'forward_bitmap': dict(
-        source='porechop_tpu_torch/csrc/dp_bitmap.cu',
-        replaces='porechop_tpu/ops/kernel_pallas.py:115',
-        replaces_also=[],
-        shapes=[('phase 2 end windows', 16384, 150, 32),
-                ('middle coordinates and replay', 1024, 10240, 32)]),
+    'forward_tiled': dict(
+        source='porechop_tpu_torch/csrc/dp_tiled.cu',
+        replaces='porechop_tpu/ops/kernel_pallas.py:376',
+        replaces_also=['porechop_tpu/ops/kernel_pallas.py:590',
+                       'porechop_tpu/ops/kernel_pallas.py:115'],
+        shapes=[('middle round 0, rung 16,384', 2048, 16384, 32),
+                ('phase 2 end windows', 16384, 150, 32),
+                ('middle coordinates and replay', 1024, 10240, 32),
+                ('middle coords, adapter rung 48', 1024, 10240, 64),
+                ('middle round 0, adapter rung 48', 1024, 24576, 64),
+                ('middle replay, rung 262,144', 128, 262144, 32)]),
 }
 
 
@@ -115,9 +132,9 @@ def _bound(name, B, L, A, rl, al):
     once) over the memory rate vs the cells this data needs times the
     minimal ops per cell over the int32 rate."""
     cells = int((rl.long() * al.long()).sum())
-    out_bytes = {'forward_score': 4 * B, 'forward_stats': 16 * B,
-                 'forward_bitmap': int((al.long() * (rl.long() + 1)).sum())
-                 + 14 * B}[name]
+    out_bytes = (int((al.long() * (rl.long() + 1)).sum()) + 14 * B
+                 if name == 'forward_tiled'
+                 else {'forward_score': 4 * B, 'forward_stats': 16 * B}[name])
     nbytes = B * L + B * A + 8 * B + out_bytes
     t_bytes = nbytes / MEM_BPS * 1e3
     t_ops = cells * OPS_PER_CELL[name] / INT32_OPS * 1e3
@@ -138,7 +155,7 @@ def check_kernels(kernels):
             torch.cuda.synchronize()
             if name == 'forward_score':
                 got, want = [got], [want]
-            if name == 'forward_bitmap':
+            if name == 'forward_tiled':
                 A_, B_, L1p = got[0].shape
                 region = ((torch.arange(A_, device='cuda')[:, None, None]
                            < x[3][None, :, None])
@@ -171,19 +188,24 @@ def check_kernels(kernels):
     return results
 
 
-def run_main_path(cli, kernels):
-    """The default trimming run, on the card, at -v 0 and -v 1."""
-    from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
-    WORK.mkdir(parents=True, exist_ok=True)
-    os.chdir(WORK)
+def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
+                  stdout_sha):
+    """One input through the default trimming run, on the card, at -v 0
+    and -v 1.  Returns {verbosity: launches of that run}."""
+    from porechop_tpu_torch.utils.synth import write_fastq
+    work.mkdir(parents=True, exist_ok=True)
+    os.chdir(work)
     t0 = time.perf_counter()
-    write_fastq('reads.fastq', synth_reads(8192, 10000, seed=0))
+    reads = reads()
+    write_fastq('reads.fastq', reads)
     with open('reads.fastq', 'rb') as f:
-        if hashlib.sha256(f.read()).hexdigest() != READS_SHA:
-            raise AssertionError('synthetic input differs from the one the '
-                                 'reference digests were recorded on')
-    print('synthesised 8,192 x 10,000 bp reads in %.1f s'
-          % (time.perf_counter() - t0), flush=True)
+        if hashlib.sha256(f.read()).hexdigest() != reads_sha:
+            raise AssertionError('synthetic %s input differs from the one '
+                                 'the reference digests were recorded on'
+                                 % what)
+    n_reads, n_bases = len(reads), sum(len(r[1]) for r in reads)
+    print('synthesised the %s input, %d reads, %d bp, in %.1f s'
+          % (what, n_reads, n_bases, time.perf_counter() - t0), flush=True)
     launches = {}
     for v in (0, 1):
         out = 'out_v%d.fastq' % v
@@ -198,24 +220,26 @@ def run_main_path(cli, kernels):
         wall = time.perf_counter() - t0
         launches[v] = dict(kernels.LAUNCHES)
         with open(out, 'rb') as f:
-            out_sha = hashlib.sha256(f.read()).hexdigest()
-        text = buf.getvalue().replace(str(WORK), '<WORKDIR>')
-        stdout_sha = hashlib.sha256(text.encode()).hexdigest()
-        print('main path -v %d: %.2f s wall, %.1f reads/s, peak device '
-              'memory %.1f MiB, launches %s' % (
-                  v, wall, 8192 / wall,
+            got_out = hashlib.sha256(f.read()).hexdigest()
+        text = buf.getvalue().replace(str(work), '<WORKDIR>')
+        got_stdout = hashlib.sha256(text.encode()).hexdigest()
+        print('%s run -v %d: %.2f s wall, %.1f reads/s, %.4g bases/s, peak '
+              'device memory %.1f MiB, launches %s' % (
+                  what, v, wall, n_reads / wall, n_bases / wall,
                   torch.cuda.max_memory_allocated() / 2 ** 20,
                   launches[v]), flush=True)
-        if out_sha != OUT_SHA[v]:
-            raise AssertionError('-v %d output FASTQ differs from the JAX '
-                                 'package (sha256 %s)' % (v, out_sha))
-        if stdout_sha != STDOUT_SHA[v]:
-            (WORK / ('stdout_v%d.txt' % v)).write_text(text)
-            raise AssertionError('-v %d stdout differs from the JAX package '
-                                 '(sha256 %s)' % (v, stdout_sha))
-        idle = [k for k, c in launches[v].items() if c == 0]
+        if got_out != out_sha[v]:
+            raise AssertionError('%s -v %d output FASTQ differs from the JAX '
+                                 'package (sha256 %s)' % (what, v, got_out))
+        if got_stdout != stdout_sha[v]:
+            (work / ('stdout_v%d.txt' % v)).write_text(text)
+            raise AssertionError('%s -v %d stdout differs from the JAX '
+                                 'package (sha256 %s)'
+                                 % (what, v, got_stdout))
+        idle = [k for k in KERNELS if launches[v][k] == 0]
         if idle:
-            raise AssertionError('-v %d never launched %s' % (v, idle))
+            raise AssertionError('%s -v %d never launched %s'
+                                 % (what, v, idle))
     os.chdir(ROOT)
     return launches
 
@@ -245,18 +269,29 @@ def main():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print('  %s: %s' % (name, line.strip()), flush=True)
 
+    from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
+                                                 synth_mixed, synth_reads)
     timings = check_kernels(kernels)
-    launches = run_main_path(cli, kernels)
+    runs = {'10 kb': run_main_path(
+        cli, kernels, '10 kb', WORK,
+        lambda: synth_reads(8192, 10000, seed=0), READS_SHA, OUT_SHA,
+        STDOUT_SHA)}
+    runs['long-read'] = run_main_path(
+        cli, kernels, 'long-read', WORK / 'long',
+        lambda: synth_mixed(LONG_READ_PARTS), LONG_READS_SHA, LONG_OUT_SHA,
+        LONG_STDOUT_SHA)
 
     line = []
     for name, spec_ in KERNELS.items():
         primary = timings[name][0]
+        by_run = {'%s -v %d' % (what, v): n[name]
+                  for what, launches in runs.items()
+                  for v, n in launches.items()}
         line.append(dict(
             name=name, route='cuda', source=spec_['source'],
             replaces=spec_['replaces'],
             replaces_also=spec_['replaces_also'],
-            launches=launches[0][name] + launches[1][name],
-            launches_v0=launches[0][name], launches_v1=launches[1][name],
+            launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=max(r['max_abs_err'] for r in timings[name]),
             ms=primary['ms'], plain_ms=primary['plain_ms'],
             bound_ms=primary['bound_ms'], bound_by=primary['bound_by'],

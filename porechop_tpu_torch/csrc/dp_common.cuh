@@ -1,15 +1,21 @@
 // One semi-global affine-gap DP body (Gotoh, free end gaps, SeqAn tie
-// rules) shared by the three hand-written Hopper kernels of this package:
+// rules) shared by the hand-written Hopper kernels of this package:
 //
 //   dp_score.cu   best score only         (replaces porechop_tpu/ops/kernel_pallas.py
 //                                           _score_kernel and _score_kernel_t)
 //   dp_stats.cu   best cell + path stats  (replaces _stats_kernel and _stats_kernel_t)
-//   dp_bitmap.cu  best cell + trace bits  (replaces _forward_kernel)
+//   dp_tiled.cu   best cell + trace bits  (replaces _forward_kernel and
+//                                           _tiled_kernel; one warp per lane,
+//                                           its own design notes)
 //
-// Layout and design.  One thread owns one lane (one read window against one
-// adapter) and sweeps the read's columns left to right; the adapter axis
-// (rows, at most AMAX) lives in registers as a column of DP state, so every
-// recurrence is evaluated exactly as written in ops/spec.py:
+// Every kernel evaluates a cell through dp_cell below, so the tie rules are
+// written once.
+//
+// Layout and design of the score and stats kernels.  One thread owns one
+// lane (one read window against one adapter) and sweeps the read's columns
+// left to right; the adapter axis (rows, at most AMAX) lives in registers
+// as a column of DP state, so every recurrence is evaluated exactly as
+// written in ops/spec.py:
 //   V[i][j] = max(V[i-1][j] + ext, M[i-1][j] + open)        (ties: extension)
 //   H[i][j] = max(H[i][j-1] + ext, pre[i][j-1] + open)      (ties: extension)
 //   pre     = max(M[i-1][j-1] + sub, V)                     (ties: diagonal)
@@ -23,10 +29,11 @@
 //
 // What bounds it on an H100: integer operations, ~15-30 per cell, with one
 // lane per thread; at the middle-adapter shape (16k lanes) that is only ~4
-// warps per SM, so the sweep is latency-bound, not throughput-bound.  The
-// bitmap mode also stores one byte per cell with a lane stride of L1p bytes
-// (uncoalesced).  A warp-per-lane anti-diagonal wavefront and the DPX
-// instructions (__viaddmax, __vimax3) are the planned fixes.
+// warps per SM, so the sweep is latency-bound, not throughput-bound.
+// dp_tiled.cu's warp-per-lane anti-diagonal wavefront, faster than this
+// design at every trace-bit shape of the trimming path (PERF.md), is the
+// likely fix here too; the DPX instructions (__viaddmax, __vimax3) are a
+// further one.
 #pragma once
 
 #include <cstdint>
@@ -39,10 +46,11 @@ constexpr int PAY_G_BIAS = 1 << 14;  // stats payload: mat * 2^15 + (g + 2^14)
 constexpr int PAY_MAT = 1 << 15;
 constexpr int LANES_PER_BLOCK = 32;
 
-enum Mode { SCORE = 0, STATS = 1, BITMAP = 2 };
+enum Mode { SCORE = 0, STATS = 1 };
 
 // Error codes returned to the Python wrapper besides cudaError_t values.
 constexpr int ERR_ADAPTER_TOO_LONG = 100000;
+constexpr int ERR_BAD_L1P = 100001;
 
 struct Args {
   const int8_t* reads;       // (B, L) Dna5 codes 0..4
@@ -52,21 +60,53 @@ struct Args {
   int B, L, A, L1p;
   int match, mismatch, gap_open, gap_ext;
   int32_t* best;             // (B,) every mode
-  int32_t* cell_i;           // (B,) stats, bitmap
+  int32_t* cell_i;           // (B,) stats, trace bits
   int32_t* cell_j;
   int32_t* pay;              // (B,) stats: payload of the elected start state
-  uint8_t* vflag;            // (B,) bitmap
+  uint8_t* vflag;            // (B,) trace bits
   uint8_t* hflag;
-  uint8_t* bits;             // (A, B, L1p) bitmap
+  uint8_t* bits;             // (A, B, L1p) trace bits
 };
+
+// One DP cell (i, j), from M(i-1, j-1) = mdiag, M(i-1, j) = mup,
+// V(i-1, j) = vup and H(i, j) = h (computed at column j-1).
+struct Cell {
+  int v, d, pre, m;   // V, diagonal, pre and M of (i, j)
+  int hnext;          // H(i, j+1)
+  bool vbit;          // V extends
+  bool dwin;          // pre takes the diagonal
+  bool prewin;        // M takes pre
+  bool hx;            // H(i, j+1) extends
+};
+
+__device__ __forceinline__ Cell dp_cell(int mdiag, int mup, int vup, int h,
+                                        bool eq, int ma, int mm, int go,
+                                        int ge) {
+  Cell c;
+  const int vext = vup + ge, vopen = mup + go;
+  c.vbit = vext >= vopen;
+  c.v = c.vbit ? vext : vopen;
+  c.d = mdiag + (eq ? ma : mm);
+  c.dwin = c.d >= c.v;
+  c.pre = c.dwin ? c.d : c.v;
+  c.prewin = c.pre >= h;
+  c.m = c.prewin ? c.pre : h;
+  const int hext = h + ge, hopen = c.pre + go;
+  c.hx = hext >= hopen;
+  c.hnext = c.hx ? hext : hopen;
+  return c;
+}
+
+// H(i, 1) = max(H(i, 0) + ext, pre(i, 0) + open), H(i, 0) = NEG, pre = 0.
+__device__ __forceinline__ int h_col1(int go, int ge) {
+  return (NEG + ge) >= go ? NEG + ge : go;
+}
 
 template <int MODE, int AMAX>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 dp_lane_kernel(Args p) {
   constexpr int NW = AMAX / 32;
   constexpr bool STAT = MODE == STATS;
-  constexpr bool BITS = MODE == BITMAP;
-  constexpr bool SCOUT = MODE != SCORE;
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;
@@ -75,8 +115,6 @@ dp_lane_kernel(Args p) {
   const int ma = p.match, mm = p.mismatch, go = p.gap_open, ge = p.gap_ext;
   const int8_t* read = p.reads + (size_t)b * p.L;
   const int8_t* adp = p.adapters + (size_t)b * p.A;
-  const size_t plane = (size_t)p.B * p.L1p;
-  uint8_t* lane_bits = BITS ? p.bits + (size_t)b * p.L1p : nullptr;
 
   // eqm[c][w] bit k: adapter[32w + k] == code c (c = 0..4; N == N).
   uint32_t eqm[5][NW];
@@ -98,23 +136,14 @@ dp_lane_kernel(Args p) {
   int Hn[AMAX];      // H[i][j] (next column's H, from column j-1)
   int PM[STAT ? AMAX : 1];
   int PHn[STAT ? AMAX : 1];
-  uint32_t hb[BITS ? NW : 1];  // H_EXT bit of the next column
-  const bool hb0 = (NEG + ge) >= go;          // H[i][0] = NEG, M[i][0] = 0
 #pragma unroll
   for (int i = 0; i < AMAX; ++i) {
     M[i] = 0;
-    Hn[i] = (NEG + ge) >= go ? NEG + ge : go;  // pre[i][0] = 0
+    Hn[i] = h_col1(go, ge);
     if constexpr (STAT) {
       PM[i] = PAY_G_BIAS;
       PHn[i] = PAY_G_BIAS + (i + 1 < alen ? 1 : 0);
     }
-  }
-  if constexpr (BITS) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) hb[w] = hb0 ? 0xffffffffu : 0u;
-    // Column 0: no H_EXT, no EQ; DIAG and MAX_V from NEG >= NEG.
-    const uint8_t b0 = (uint8_t)((((NEG + ge) >= go) ? 2 : 0) | 4 | 8);
-    for (int i = 0; i < alen; ++i) lane_bits[i * plane] = b0;
   }
 
   // Final-column scout: first strict max down column read_len, from
@@ -137,85 +166,58 @@ dp_lane_kernel(Args p) {
     int mdiag = 0, pdiag = PAY_G_BIAS;          // M(0, j-1)
     int mup = 0, pmup = PAY_G_BIAS;             // M(0, j)
     int vup = NEG, pvup = PAY_G_BIAS;           // V(0, j)
-    uint32_t hbn[BITS ? NW : 1];
-#pragma unroll
-    for (int w = 0; w < (BITS ? NW : 1); ++w) hbn[w] = 0u;
 #pragma unroll
     for (int i = 0; i < AMAX; ++i) {
       if (i >= alen) break;
       const bool eq = (eqw[i >> 5] >> (i & 31)) & 1u;
-      const int vext = vup + ge, vopen = mup + go;
-      const bool vbit = vext >= vopen;
-      const int v = vbit ? vext : vopen;
-      const int d = mdiag + (eq ? ma : mm);
-      const bool dwin = d >= v;
-      const int pre = dwin ? d : v;
       const int h = Hn[i];
-      const bool prewin = pre >= h;
-      const int m = prewin ? pre : h;
-      const int hext = h + ge, hopen = pre + go;
-      const bool hx = hext >= hopen;
+      const Cell c = dp_cell(mdiag, mup, vup, h, eq, ma, mm, go, ge);
+      const int m = c.m, v = c.v;
       int pv = 0, ph = 0, pm = 0;
       if constexpr (STAT) {
-        pv = vbit ? pvup : pmup;
+        pv = c.vbit ? pvup : pmup;
         const int pd = pdiag + (eq ? PAY_MAT : 0);
-        const int ppre = dwin ? pd : pv;
+        const int ppre = c.dwin ? pd : pv;
         ph = PHn[i];
-        pm = prewin ? ppre : ph;
+        pm = c.prewin ? ppre : ph;
         pdiag = PM[i];
-        PHn[i] = (hx ? ph : ppre) + (i + 1 < alen ? 1 : 0);
+        PHn[i] = (c.hx ? ph : ppre) + (i + 1 < alen ? 1 : 0);
         PM[i] = pm;
         pmup = pm;
         pvup = pv;
       }
-      if constexpr (BITS) {
-        const int vh = v >= h ? v : h;
-        const uint32_t byte = ((hb[i >> 5] >> (i & 31)) & 1u)
-                            | (vbit ? 2u : 0u) | (d >= vh ? 4u : 0u)
-                            | (v >= h ? 8u : 0u) | (eq ? 16u : 0u);
-        lane_bits[i * plane + j] = (uint8_t)byte;
-        if (h + ge >= m + go) hbn[i >> 5] |= 1u << (i & 31);
-      }
       mdiag = M[i];
       M[i] = m;
-      Hn[i] = hx ? hext : hopen;
+      Hn[i] = c.hnext;
       mup = m;
       vup = v;
-      if constexpr (SCOUT) {
+      if constexpr (STAT) {
         if (last_col && m > tsc) {
           tsc = m;
           ti = i + 1;
           tvf = v == m;
           thf = !tvf && h == m;
-          if constexpr (STAT) tpay = tvf ? pv : (thf ? ph : pm);
+          tpay = tvf ? pv : (thf ? ph : pm);
         }
         if (!last_col && i + 1 == alen && m > rsc) {
           rsc = m;
           rj = j;
           rvf = v == m;
           rhf = !rvf && h == m;
-          if constexpr (STAT) rpay = rvf ? pv : (rhf ? ph : pm);
+          rpay = rvf ? pv : (rhf ? ph : pm);
         }
       } else {
         if (last_col || i + 1 == alen) best = m > best ? m : best;
       }
     }
-    if constexpr (BITS) {
-#pragma unroll
-      for (int w = 0; w < NW; ++w) hb[w] = hbn[w];
-    }
   }
 
-  if constexpr (SCOUT) {
+  if constexpr (STAT) {
     const bool col_wins = tsc > rsc;
     p.best[b] = col_wins ? tsc : rsc;
     p.cell_i[b] = col_wins ? ti : alen;
     p.cell_j[b] = col_wins ? rlen : rj;
-    if constexpr (STAT) p.pay[b] = col_wins ? tpay : rpay;
-    if constexpr (BITS) {
-      p.vflag[b] = col_wins ? tvf : rvf;
-      p.hflag[b] = col_wins ? thf : rhf;
-    }
+    p.pay[b] = col_wins ? tpay : rpay;
   } else {
     p.best[b] = best;
   }

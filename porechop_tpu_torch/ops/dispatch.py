@@ -36,9 +36,6 @@ _MIN_LANES = 32
 
 _A_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 
-TILED_ITEM = ('ROADMAP.md, Queue 2: port _tiled_kernel (the column-tiled '
-              'bitmap forward, L + 1 > 16,384)')
-
 
 def resolve_device(device=None) -> torch.device:
     """The device the port runs on: the card unless the caller asks for
@@ -69,6 +66,24 @@ def _bucket_adapter_len(n: int) -> int:
     return ((n + 127) // 128) * 128
 
 
+def _pow2_lanes(budget: int, lb: int, amax: int) -> int:
+    """The largest power of two of lanes, at least _MIN_LANES, whose
+    (lb + 1) x amax cells fit the budget."""
+    per = max(_MIN_LANES, budget // ((lb + 1) * amax))
+    return 1 << max(_MIN_LANES.bit_length() - 1, per.bit_length() - 1)
+
+
+def bits_lanes(lb: int, amax: int) -> int:
+    """Lanes per trace-bit launch at window rung lb and adapter rung amax:
+    its bits (one byte per cell) under _CELL_BUDGET, and the walker's flat
+    bit index lanes * L1p * A below 2^31."""
+    per = _pow2_lanes(_CELL_BUDGET, lb, amax)
+    l1p = kernels.tiled_l1p(lb)
+    while per > _MIN_LANES and per * l1p * amax >= 2 ** 31:
+        per //= 2
+    return per
+
+
 def _bucket_lanes(n: int) -> int:
     """Snap the batch (lane) count to a power of two so shrinking active
     sets reuse launch shapes."""
@@ -76,13 +91,6 @@ def _bucket_lanes(n: int) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def check_window_rung(lb: int) -> None:
-    if lb + 1 > kernels.MAX_L1P:
-        raise NotImplementedError(
-            'windows of %d bp need the column-tiled forward, which is not '
-            'ported yet: %s' % (lb, TILED_ITEM))
 
 
 def seqan_pct_vec(matches: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -354,7 +362,6 @@ class AlignJobs:
 
         device_work = []  # (lb, amax, chunk) launches
         for (lb, amax), idxs in sorted(buckets.items()):
-            check_window_rung(lb)
             for chunk in self._chunk_split(np.asarray(idxs), lb, amax):
                 device_work.append((lb, amax, chunk))
 
@@ -381,26 +388,20 @@ class AlignJobs:
         """Chunks of this window rung launch through the group max."""
         return self._group is not None and lb <= self._GROUP_MAX_RUNG
 
-    def _is_stats_rung(self) -> bool:
-        """Chunks launch through the per-lane stats kernel (run_stats mode)
-        or the score-only kernel (prefilter mode)."""
-        return self._stats_only or self._score_only
+    def _is_stats_rung(self, lb) -> bool:
+        """Chunks of this window rung launch through the per-lane stats
+        kernel (run_stats mode) or the score-only kernel (prefilter mode)
+        while L + 1 <= MAX_L1P; longer rungs run the trace-bit forward and
+        the walk, the JAX package's route (engine_v2.stats_mode_ok)."""
+        return ((self._stats_only or self._score_only)
+                and lb + 1 <= kernels.MAX_L1P)
 
     def _per_launch(self, lb, amax):
-        """Power-of-two chunk width under the cell budget.  Bitless rungs
-        take the larger budget; bitmap rungs are additionally clamped so the
-        walker's flat bit index lanes * L1p * A stays below 2^31."""
-        gm = self._is_groupmax_rung(lb) or self._is_stats_rung()
-        budget = _GM_CELL_BUDGET if gm else _CELL_BUDGET
-        per_launch = max(_MIN_LANES, budget // ((lb + 1) * amax))
-        per_launch = 1 << max(_MIN_LANES.bit_length() - 1,
-                              per_launch.bit_length() - 1)
-        if not gm:
-            l1p = kernels.l1p_for(lb)
-            while (per_launch > _MIN_LANES
-                   and per_launch * l1p * amax >= 2 ** 31):
-                per_launch //= 2
-        return per_launch
+        """Power-of-two chunk width: bitless rungs under the larger cell
+        budget, trace-bit rungs as bits_lanes allows."""
+        if self._is_groupmax_rung(lb) or self._is_stats_rung(lb):
+            return _pow2_lanes(_GM_CELL_BUDGET, lb, amax)
+        return bits_lanes(lb, amax)
 
     def _chunk_split(self, idxs, lb, amax):
         per_launch = self._per_launch(lb, amax)
@@ -458,7 +459,7 @@ class AlignJobs:
             return ('gm', engine_v2.fused_gather_groupmax(
                 *tabs, torch.from_numpy(g_idx).to(dev), n_groups,
                 self.scoring))
-        if self._is_stats_rung():
+        if self._is_stats_rung(lb):
             if self._gscore is not None:
                 gids, n_groups = self._gscore
                 g_idx = np.full(Bp, n_groups, dtype=np.int64)

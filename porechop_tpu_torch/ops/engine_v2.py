@@ -248,10 +248,12 @@ def score_fwd(reads, rl, adps, al, scoring):
 
 
 def fused_gather(wtab, wlens, atab, alens, w_idx, a_idx, scoring):
-    """Gather + bitmap forward + walk: (walk, best, cell_i, cell_j)."""
+    """Gather + trace-bit forward + walk: (walk, best, cell_i, cell_j).
+    One forward for every window length (porechop_tpu/ops/engine_v2
+    _pallas_mode's modes 1 and 2)."""
     reads, rl, adps, al = _gather(wtab, wlens, atab, alens, w_idx, a_idx)
-    bits, best, ci, cj, vf, hf = kernels.forward_bitmap(reads, rl, adps, al,
-                                                        *scoring)
+    bits, best, ci, cj, vf, hf = kernels.forward_tiled(reads, rl, adps, al,
+                                                       *scoring)
     return traceback(bits, ci, cj, vf, hf), best, ci, cj
 
 

@@ -1,17 +1,16 @@
-"""The three DP forwards of the aligner: hand-written Hopper kernels, their
-plain PyTorch versions, and a launch counter per kernel.
+"""The DP forwards of the aligner: hand-written Hopper kernels, their plain
+PyTorch versions, and a launch counter per kernel.
 
 Counterpart of porechop_tpu/ops/kernel_pallas.py.  Its six Pallas kernels
-compute three functions, and each function here is one CUDA kernel
-(csrc/, design notes in csrc/dp_common.cuh):
+compute three functions; each function here is one CUDA kernel (csrc/,
+design notes in csrc/dp_common.cuh and csrc/dp_tiled.cu):
 
   forward_score   _score_kernel, _score_kernel_t   best score only
   forward_stats   _stats_kernel, _stats_kernel_t   best cell + (matches,
                                                    full_len) of its path
-  forward_bitmap  _forward_kernel                  best cell + trace bits
-
-The column-tiled bitmap kernel (_tiled_kernel, L + 1 > 16,384) is not
-ported yet; every function here takes L + 1 <= MAX_L1P.
+  forward_tiled   _forward_kernel, _tiled_kernel   best cell + trace bits,
+                                                   any L, in TILE_T-column
+                                                   tiles
 
 A wrapper runs its plain version when the tensors it is given lie on the
 CPU, launches its kernel when they lie on a CUDA device, and raises for
@@ -40,9 +39,14 @@ import torch
 
 from .spec import NEG
 
-MAX_L1P = 1 << 14          # L + 1 bound of the JAX single-tile kernels
+# L + 1 bound of the JAX package's single-tile kernels.  The planner keeps
+# its routing: longer rungs of the stats and score modes take the trace-bit
+# forward and the walk (dispatch.AlignJobs._is_stats_rung).
+MAX_L1P = 1 << 14
 MAX_A = 128                # rows of the kernels' register-resident DP column
-_JKEY = 1 << 20            # leftmost-max key: value * _JKEY + (_JKEY - 1 - j)
+TILE_T = 256               # columns per tile of forward_tiled (dp_tiled.cu)
+_JKEY_BITS = 32            # leftmost-max key, int64: value * 2^32 + (2^32 - 1
+_JKEY = 1 << _JKEY_BITS    # - j); any column of any rung fits the low word
 _PAY_G_BIAS = 1 << 14      # stats payload: mat * 2^15 + (g + 2^14)
 _PAY_MAT = 1 << 15
 _OKEY = 1 << 24            # earliest-opener key of the plain stats H scan
@@ -51,12 +55,12 @@ B_HEXT, B_VEXT, B_DIAG, B_MAXV, B_EQ = 1, 2, 4, 8, 16
 
 # Launches of each kernel since the counter was last reset.  A wrapper adds
 # one where it launches its kernel, and nowhere else.
-LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_bitmap': 0}
+LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0}
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = {'forward_score': 'dp_score.cu', 'forward_stats': 'dp_stats.cu',
-           'forward_bitmap': 'dp_bitmap.cu'}
+           'forward_tiled': 'dp_tiled.cu'}
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -141,7 +145,7 @@ def _lib(name: str):
     lib = ctypes.CDLL(str(BUILD_DIR / (Path(SOURCES[name]).stem + '.so')))
     fn = getattr(lib, 'pdp_' + name)
     n_int, n_out = {'forward_score': (7, 1), 'forward_stats': (7, 4),
-                    'forward_bitmap': (8, 6)}[name]
+                    'forward_tiled': (8, 6)}[name]
     # reads, read_lens, adapters, adapter_lens; the ints; the outputs; the
     # stream.
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
@@ -167,7 +171,9 @@ def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
 
 
 def _check(reads, read_lens, adapters, adapter_lens):
-    B, L = reads.shape
+    if reads.dim() != 2:
+        raise ValueError('reads must be (B, L), got %s' % (reads.shape,))
+    B = reads.shape[0]
     if adapters.dim() != 2 or adapters.shape[0] != B:
         raise ValueError('adapters must be (B, A), got %s' % (adapters.shape,))
     if read_lens.shape != (B,) or adapter_lens.shape != (B,):
@@ -180,17 +186,14 @@ def _check(reads, read_lens, adapters, adapter_lens):
             raise ValueError('all inputs must lie on one device')
         if not t.is_contiguous():
             raise ValueError('inputs must be contiguous')
-    if L + 1 > MAX_L1P:
-        raise ValueError('L + 1 = %d exceeds %d: the column-tiled kernel is '
-                         'not ported' % (L + 1, MAX_L1P))
     if reads.device.type not in ('cpu', 'cuda'):
         raise ValueError('unsupported device %s' % reads.device)
     return reads.device.type == 'cuda'
 
 
-def l1p_for(L: int) -> int:
-    """Padded bitmap row width: L + 1 rounded up to 128 (the JAX layout)."""
-    return ((L + 1 + 127) // 128) * 128
+def tiled_l1p(L: int) -> int:
+    """Bitmap row width of forward_tiled: L + 1 rounded up to TILE_T."""
+    return ((L + 1 + TILE_T - 1) // TILE_T) * TILE_T
 
 
 # ---------------------------------------------------------------------------
@@ -230,18 +233,20 @@ def forward_stats(reads, read_lens, adapters, adapter_lens,
     return _decode_stats(*outs, read_lens, adapter_lens)
 
 
-def forward_bitmap(reads, read_lens, adapters, adapter_lens,
-                   match, mismatch, gap_open, gap_ext):
+def forward_tiled(reads, read_lens, adapters, adapter_lens,
+                  match, mismatch, gap_open, gap_ext):
     """(bits (A, B, L1p) uint8, best, cell_i, cell_j (B,) int32, vflag,
-    hflag (B,) bool), L1p = l1p_for(L).  Bits are specified for rows
-    < adapter_len and columns <= read_len, the region the walker reads."""
+    hflag (B,) bool) for a window of any length L >= 1, L1p =
+    tiled_l1p(L).  Bits are specified for rows < adapter_len and columns
+    <= read_len, the region the walker reads.  Every trace-bit forward of
+    the port, short windows (kernel_pallas.forward_pallas) and long
+    (forward_pallas_tiled) alike."""
     if not _check(reads, read_lens, adapters, adapter_lens):
-        return forward_bitmap_plain(reads, read_lens, adapters,
-                                    adapter_lens, match, mismatch, gap_open,
-                                    gap_ext)
+        return forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
+                                   match, mismatch, gap_open, gap_ext)
     B, L = reads.shape
     A = adapters.shape[1]
-    L1p = l1p_for(L)
+    L1p = tiled_l1p(L)
     dev = reads.device
     bits = torch.empty((A, B, L1p), dtype=torch.uint8, device=dev)
     best, ci, cj = (torch.empty(B, dtype=torch.int32, device=dev)
@@ -249,7 +254,7 @@ def forward_bitmap(reads, read_lens, adapters, adapter_lens,
     vf, hf = (torch.empty(B, dtype=torch.uint8, device=dev)
               for _ in range(2))
     if B:
-        _launch('forward_bitmap', reads, read_lens, adapters, adapter_lens,
+        _launch('forward_tiled', reads, read_lens, adapters, adapter_lens,
                 (B, L, A, L1p, match, mismatch, gap_open, gap_ext),
                 (bits, best, ci, cj, vf, hf))
     return bits, best, ci, cj, vf != 0, hf != 0
@@ -268,11 +273,11 @@ def _decode_stats(best, ci, cj, pay, read_lens, adapter_lens):
 # ---------------------------------------------------------------------------
 
 def _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
-           gap_open, gap_ext, mode):
-    """One DP body for the three plain versions (mode 'score', 'stats' or
-    'bitmap'): a Python loop over adapter rows, each row a handful of
-    (B, L + 1) tensor ops.  Lanes freeze once their adapter has ended, as
-    in the TPU kernels."""
+           gap_open, gap_ext, mode, l1p=None):
+    """One DP body for the plain versions (mode 'score', 'stats' or
+    'bitmap', the last with bits l1p columns wide): a Python loop over
+    adapter rows, each row a handful of (B, L + 1) tensor ops.  Lanes
+    freeze once their adapter has ended, as in the TPU kernels."""
     B, L = reads.shape
     A = adapters.shape[1]
     L1 = L + 1
@@ -297,7 +302,7 @@ def _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
         pv = pm.clone()
         ph = pm.clone()
     if bitmap:
-        bits = torch.zeros((A, B, l1p_for(L)), dtype=torch.uint8, device=dev)
+        bits = torch.zeros((A, B, l1p), dtype=torch.uint8, device=dev)
     tsc = torch.zeros(B, dtype=i32, device=dev)
     ti = torch.zeros(B, dtype=i32, device=dev)
     tvf = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -401,11 +406,12 @@ def _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
         return tsc
 
     # Last-row scout: leftmost max of M over columns [0, read_len).
-    valid = jcol[None, :].to(i64) < rl[:, None]
-    key = torch.where(valid, m.to(i64) * _JKEY + (_JKEY - 1 - jcol),
+    j64 = jcol.to(i64)
+    valid = j64[None, :] < rl[:, None]
+    key = torch.where(valid, m.to(i64) * _JKEY + (_JKEY - 1 - j64),
                       torch.full_like(m, NEG, dtype=i64) * _JKEY)
     best_key = key.amax(dim=1)
-    row_sc = (best_key >> 20).to(i32)
+    row_sc = (best_key >> _JKEY_BITS).to(i32)
     j_star = ((_JKEY - 1) - (best_key & (_JKEY - 1))).clamp(max=L)
     sel = j_star[:, None]
     row_v = v.gather(1, sel)[:, 0]
@@ -442,8 +448,8 @@ def forward_stats_plain(reads, read_lens, adapters, adapter_lens,
     return _decode_stats(best, ci, cj, pay, read_lens, adapter_lens)
 
 
-def forward_bitmap_plain(reads, read_lens, adapters, adapter_lens,
-                         match, mismatch, gap_open, gap_ext):
-    """Plain PyTorch version of forward_bitmap."""
+def forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
+                        match, mismatch, gap_open, gap_ext):
+    """Plain PyTorch version of forward_tiled."""
     return _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
-                  gap_open, gap_ext, 'bitmap')
+                  gap_open, gap_ext, 'bitmap', tiled_l1p(reads.shape[1]))

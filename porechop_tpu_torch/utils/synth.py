@@ -62,6 +62,25 @@ def synth_reads(n_reads: int = 512, read_len: int = 10_000, seed: int = 0,
     return reads
 
 
+# (reads, length) parts of the long-read set (chip_smoke.py,
+# profile_torch.py --long): 2,560 reads, 67.3 Mb, read N50 40 kb, longest
+# 200 kb, at every window rung from 8,192 to 262,144.
+LONG_READ_PARTS = ((512, 8_000), (1_024, 16_000), (512, 24_000),
+                   (256, 40_000), (128, 64_000), (96, 100_000),
+                   (32, 200_000))
+
+
+def synth_mixed(parts, **kwargs):
+    """Reads of several lengths in one set: synth_reads(n, length, seed=k,
+    **kwargs) for the k-th (n, length) of `parts` (k from 1), concatenated,
+    permuted with numpy seed 0 and renamed read_%05d in the new order."""
+    reads = [r for k, (n, length) in enumerate(parts, 1)
+             for r in synth_reads(n, length, seed=k, **kwargs)]
+    order = np.random.default_rng(0).permutation(len(reads))
+    return [('read_%05d' % i, reads[k][1], reads[k][2])
+            for i, k in enumerate(order)]
+
+
 def write_fastq(path: str, reads) -> None:
     with open(path, 'w') as f:
         for name, seq, quals in reads:

@@ -2,16 +2,18 @@
 """Where the time goes on the PyTorch/CUDA port's main path, on one NVIDIA
 GPU.  Run from the repository root:
 
-    python3 profile_torch.py
+    python3 profile_torch.py          # 8,192 x 10 kb reads
+    python3 profile_torch.py --long   # the long-read set, 8-200 kb
 
-For -v 0 and -v 1 it runs porechop_tpu_torch.cli.main on the 8,192 x 10 kb
-synthetic input of chip_smoke.py (build/smoke/reads.fastq, made if
-missing) three times: to warm up, to time it (wall per phase on the host
-clock, each phase ending in a device synchronise), and under
-torch.profiler (the device's busy time, the sum of its kernel times, and
-the CUDA kernels by total device time).  It prints one JSON line per
-verbosity; the idle share is 1 - busy / the unprofiled wall.  The full
-profiler tables go to build/profile/.
+For -v 0 and -v 1 it runs porechop_tpu_torch.cli.main on an input of
+chip_smoke.py (build/smoke/reads.fastq or build/smoke/long/reads.fastq,
+made if missing) three times: to warm up, to time it (wall per phase on
+the host clock, each phase ending in a device synchronise, and the peak
+device memory), and under torch.profiler (the device's busy time, the sum
+of its kernel times, and the CUDA kernels by total device time).  It
+prints one JSON line per verbosity; the idle share is 1 - busy / the
+unprofiled wall.  The full profiler tables go to build/profile/ (or
+build/profile/long/).
 """
 
 import collections
@@ -34,24 +36,31 @@ PHASES = ('load_reads', 'find_matching_adapter_sets',
           'output_reads')
 
 
-def main():
+def main(argv=None):
+    long_reads = '--long' in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print('profile_torch: no CUDA device', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from porechop_tpu_torch import cli
     from porechop_tpu_torch.ops import kernels
-    from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
+    from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
+                                                 synth_mixed, synth_reads,
+                                                 write_fastq)
+    work, out = (WORK / 'long', OUT / 'long') if long_reads else (WORK, OUT)
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     kernels.build()
-    WORK.mkdir(parents=True, exist_ok=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    os.chdir(WORK)
+    work.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
+    os.chdir(work)
     if not os.path.isfile('reads.fastq'):
-        write_fastq('reads.fastq', synth_reads(8192, 10000, seed=0))
+        write_fastq('reads.fastq', synth_mixed(LONG_READ_PARTS) if long_reads
+                    else synth_reads(8192, 10000, seed=0))
+    with open('reads.fastq', 'rb') as f:
+        n_reads = sum(1 for _ in f) // 4
 
     walls = collections.Counter()
 
@@ -82,9 +91,11 @@ def main():
         run()                                   # warm-up
         walls.clear()
         kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         wall = run()                            # clean wall and phases
         phase_walls = dict(walls)
         launches = dict(kernels.LAUNCHES)
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -96,12 +107,14 @@ def main():
                 by_kernel[evt.name] += evt.time_range.elapsed_us()
                 count[evt.name] += 1
         busy_s = sum(by_kernel.values()) * 1e-6
-        (OUT / ('table_v%d.txt' % v)).write_text(
+        (out / ('table_v%d.txt' % v)).write_text(
             prof.key_averages().table(sort_by='self_device_time_total',
                                       row_limit=40))
         print(json.dumps({
-            'verbosity': v, 'wall_s': wall, 'reads_per_s': 8192 / wall,
+            'input': 'long-read' if long_reads else '10 kb',
+            'verbosity': v, 'wall_s': wall, 'reads_per_s': n_reads / wall,
             'phase_wall_s': phase_walls, 'launches': launches,
+            'peak_device_mib': peak_mib,
             'profiled_wall_s': prof_wall, 'device_busy_s': busy_s,
             'device_idle_share': 1 - busy_s / wall,
             'top_kernels': [

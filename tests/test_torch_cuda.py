@@ -46,8 +46,8 @@ def test_kernels_match_plain(card, seed, B, L, A):
     for g, w in zip(kernels.forward_stats(*dev, *SCHEME),
                     kernels.forward_stats(*cpu, *SCHEME)):
         assert torch.equal(g.cpu(), w)
-    got = kernels.forward_bitmap(*dev, *SCHEME)
-    want = kernels.forward_bitmap(*cpu, *SCHEME)
+    got = kernels.forward_tiled(*dev, *SCHEME)
+    want = kernels.forward_tiled(*cpu, *SCHEME)
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g.cpu(), w)
     bits = got[0].cpu()
@@ -56,7 +56,45 @@ def test_kernels_match_plain(card, seed, B, L, A):
         rows, cols = int(al[k]), int(rl[k]) + 1
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_bitmap': 1}
+                                'forward_tiled': 1}
+
+
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('ntiles', [1, 2, 3])
+def test_forward_tiled_matches_plain(card, A, ntiles):
+    """The column-tiled kernel against its plain version over 1, 2 and 3
+    tiles, with lanes whose reads end inside, at and past a tile edge."""
+    T = kernels.TILE_T
+    L = ntiles * T - 1                               # L + 1 = ntiles tiles
+    reads, rl, adps, al = dp_batch(30 + ntiles, 40, L, A)
+    for k, edge in enumerate((T - 2, T - 1, T, T + 1, 2 * T - 1, 2 * T,
+                              2 * T + 1, 1, L)):
+        if edge <= L:
+            rl[k] = edge
+    al[0] = A
+    cpu = to_torch(reads, rl, adps, al)
+    dev = [t.to(card) for t in cpu]
+    kernels.reset_launches()
+    got = kernels.forward_tiled(*dev, *SCHEME)
+    want = kernels.forward_tiled(*cpu, *SCHEME)
+    assert kernels.LAUNCHES['forward_tiled'] == 1
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w)
+    bits = got[0].cpu()
+    assert bits.shape == want[0].shape == (A, 40, ntiles * T)
+    for k in range(len(rl)):
+        rows, cols = int(al[k]), int(rl[k]) + 1
+        assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
+
+
+def test_forward_tiled_raises_past_128_rows_on_the_card(card):
+    """A CUDA tensor launches the kernel or raises: no fallback to the
+    plain version for adapters the kernel does not take."""
+    dev = [t.to(card) for t in to_torch(*dp_batch(3, 4, 300, 129))]
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError, match='128'):
+        kernels.forward_tiled(*dev, *SCHEME)
+    assert kernels.LAUNCHES['forward_tiled'] == 0
 
 
 def test_cli_on_card_matches_cpu(card, tmp_path):

@@ -9,7 +9,7 @@ import pytest
 
 from porechop_tpu.ops import dispatch as jax_dispatch
 from porechop_tpu.ops import middle as jax_middle
-from porechop_tpu_torch.ops import dispatch, middle
+from porechop_tpu_torch.ops import dispatch, kernels, middle
 
 from .test_torch_cases import FIELDS, one_torch_thread
 
@@ -96,12 +96,38 @@ def test_progress_covers_every_job():
     assert sorted(seen) == list(range(len(pairs)))
 
 
+def test_long_window_runs_and_matches_jax():
+    """A 16,400 bp window (rung 24,576, past the single-tile forward) runs
+    through the column-tiled forward and equals the JAX package."""
+    rng = np.random.default_rng(9)
+    adapter = [rng.integers(0, 4, 24).astype(np.int8)]
+    window = rng.integers(0, 4, 16_400).astype(np.int8)
+    window[15_000:15_024] = adapter[0]
+    got, want = (j.run() for j in _both([window], adapter, [(0, 0)]))
+    for f in FIELDS + ('read_end_excl', 'full_pct'):
+        assert np.array_equal(got[f], want[f]), f
+    assert got['read_start'][0] == 15_000 and got['full_pct'][0] == 100.0
+
+
+@pytest.mark.parametrize('lb,amax', [(150, 32), (10_240, 48),
+                                     (262_144, 32), (1_048_576, 64)])
+def test_bits_lanes_fit_the_budget(lb, amax):
+    """The widest power of two of lanes whose trace bits fit the cell
+    budget and whose flat bit index stays below 2^31, or the minimum."""
+    n = dispatch.bits_lanes(lb, amax)
+    l1p = kernels.tiled_l1p(lb)
+
+    def fits(k):
+        return k * (lb + 1) * amax <= dispatch._CELL_BUDGET \
+            and k * l1p * amax < 2 ** 31
+    assert n >= dispatch._MIN_LANES and n & (n - 1) == 0
+    assert n == dispatch._MIN_LANES or fits(n)
+    assert not fits(2 * n)
+
+
 def test_unported_shapes_and_schemes_raise():
-    long_window = [np.zeros(16_400, np.int8)]
+    """Schemes the kernels do not take raise; no window length does."""
     adapter = [np.zeros(24, np.int8)]
-    with pytest.raises(NotImplementedError, match='_tiled_kernel'):
-        dispatch.AlignJobs(long_window, adapter, [(0, 0)],
-                           device='cpu').run()
     with pytest.raises(NotImplementedError, match='gap_open < gap_ext'):
         dispatch.AlignJobs([np.zeros(30, np.int8)], adapter, [(0, 0)],
                            scoring=(3, -6, -2, -2), device='cpu').run()

@@ -43,10 +43,10 @@ def _jax_kernels(batch, scheme):
 
 
 def _walk_port(batch, scheme):
-    """The port's bitmap forward + walker + finish on host arrays."""
+    """The port's trace-bit forward + walker + finish on host arrays."""
     reads, rl, adps, al = to_torch(*batch)
-    bits, best, ci, cj, vf, hf = kernels.forward_bitmap(reads, rl, adps, al,
-                                                        *scheme)
+    bits, best, ci, cj, vf, hf = kernels.forward_tiled(reads, rl, adps, al,
+                                                       *scheme)
     walk = engine_v2.traceback(bits, ci, cj, vf, hf)
     res = engine_v2.finish_v2(walk.numpy(), best.numpy(), ci.numpy(),
                               cj.numpy(), batch[1], batch[3])
@@ -55,8 +55,8 @@ def _walk_port(batch, scheme):
 
 @pytest.mark.parametrize('seed,B,L,A', SHAPES + [(0, 128, 120, 24)])
 def test_forwards_match_pallas(seed, B, L, A):
-    """Score (K5/K6), stats (K3/K4) and the bitmap forward's elected cell
-    (K1) against the interpret-mode Pallas kernels; the last case is the
+    """Score (K5/K6), stats (K3/K4) and the trace-bit forward's elected
+    cell (K1) against the interpret-mode Pallas kernels; the last case is the
     adversarial gap-run batch."""
     batch = (gap_run_batch() if seed == 0 else dp_batch(seed, B, L, A))
     score, score_t, stats, stats_t, bitmap = _jax_kernels(batch, SCHEME)
@@ -114,10 +114,10 @@ def test_plain_bitmap_stays_in_the_walked_region():
     bits in the region the walker reads (rows < adapter_len, columns <=
     read_len) equal those of the lane run alone."""
     batch = dp_batch(3, 32, 80, 20)
-    full = kernels.forward_bitmap(*to_torch(*batch), *SCHEME)
+    full = kernels.forward_tiled(*to_torch(*batch), *SCHEME)
     for k in (0, 5, 17):
-        one = kernels.forward_bitmap(*to_torch(*(x[k:k + 1] for x in batch)),
-                                     *SCHEME)
+        one = kernels.forward_tiled(*to_torch(*(x[k:k + 1] for x in batch)),
+                                    *SCHEME)
         for a, b in zip(full[1:], one[1:]):
             assert a[k] == b[0]
         rows, cols = int(batch[3][k]), int(batch[1][k]) + 1
@@ -131,8 +131,9 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         kernels.forward_stats(reads, rl[:2], adps, al, *SCHEME)
     with pytest.raises(ValueError):
-        too_long = torch.zeros((4, kernels.MAX_L1P), dtype=torch.int8)
-        kernels.forward_bitmap(too_long, rl, adps, al, *SCHEME)
+        kernels.forward_tiled(reads, rl, adps[:3], al, *SCHEME)
+    with pytest.raises(ValueError):
+        kernels.forward_tiled(reads[None], rl, adps, al, *SCHEME)
 
 
 def test_score_prefilter_coef_matches_jax():
