@@ -79,14 +79,16 @@ KERNELS = {
         replaces_also=['porechop_tpu/ops/kernel_pallas.py:1366'],
         shapes=[('middle round 0', 1024, 10240, 32),
                 ('detection prefilter', 16384, 150, 24),
-                ('detection prefilter', 16384, 150, 48)]),
+                ('detection prefilter', 16384, 150, 48),
+                ('middle round 0, real width', 16384, 10240, 32)]),
     'forward_stats': dict(
         source='porechop_tpu_torch/csrc/dp_stats.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:721',
         replaces_also=['porechop_tpu/ops/kernel_pallas.py:979'],
         shapes=[('detection group max', 16384, 150, 24),
                 ('detection group max', 16384, 150, 48),
-                ('middle survivors', 1024, 10240, 32)]),
+                ('middle survivors', 1024, 10240, 32),
+                ('middle survivors, adapter rung 48', 1024, 10240, 64)]),
     'forward_tiled': dict(
         source='porechop_tpu_torch/csrc/dp_tiled.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:376',
@@ -114,11 +116,18 @@ def _inputs(B, L, A, seed):
     return [torch.from_numpy(x).cuda() for x in (reads, rl, adps, al)]
 
 
-def _time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
+def _time_ms(fn, reps=None):
+    """Device time of one call (CUDA events), averaged over reps calls
+    after a warm-up; by default over as many calls as fill ~100 ms (5 to
+    200), so that short kernels are not timed at the events' resolution."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if reps is None:
+        reps = min(200, max(5, int(100 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -172,7 +181,7 @@ def check_kernels(kernels):
                 raise AssertionError('%s disagrees with its plain version '
                                      'at %s (%d x %d x %d): max |err| %d'
                                      % (name, what, B, L, A, err))
-            ms = _time_ms(lambda: kern(*x, *SCHEME), reps=5)
+            ms = _time_ms(lambda: kern(*x, *SCHEME))
             plain_ms = _time_ms(lambda: plain(*x, *SCHEME), reps=1)
             cells, (bound_ms, bound_by) = _bound(name, B, L, A, x[1], x[3])
             rows.append(dict(what=what, lanes=B, L=L, A=A, cells=cells,

@@ -2,15 +2,23 @@
 PyTorch versions, and a launch counter per kernel.
 
 Counterpart of porechop_tpu/ops/kernel_pallas.py.  Its six Pallas kernels
-compute three functions; each function here is one CUDA kernel (csrc/,
-design notes in csrc/dp_common.cuh and csrc/dp_tiled.cu):
+compute three functions; each function here is one CUDA kernel (csrc/),
+and all three are instantiations of one wavefront body,
+dp_wave_kernel<MODE, AMAX> in csrc/dp_common.cuh (design notes there):
 
   forward_score   _score_kernel, _score_kernel_t   best score only
   forward_stats   _stats_kernel, _stats_kernel_t   best cell + (matches,
                                                    full_len) of its path
   forward_tiled   _forward_kernel, _tiled_kernel   best cell + trace bits,
-                                                   any L, in TILE_T-column
-                                                   tiles
+                                                   in TILE_T-column tiles
+
+One warp per lane (one read window against one adapter) on the
+anti-diagonal: thread t owns adapter rows [R t, R t + R), R = AMAX / 32
+(AMAX 32, 64 or 128 by the adapter width), and the row above arrives by a
+warp shuffle.  Every kernel takes any L: a lane stops at its own read
+length.  Score and stats run four lanes to a block in SCAN_T-column tiles,
+the trace-bit forward one lane to a block in TILE_T-column tiles whose
+trace bytes are staged in shared memory.
 
 A wrapper runs its plain version when the tensors it is given lie on the
 CPU, launches its kernel when they lie on a CUDA device, and raises for
@@ -43,8 +51,9 @@ from .spec import NEG
 # its routing: longer rungs of the stats and score modes take the trace-bit
 # forward and the walk (dispatch.AlignJobs._is_stats_rung).
 MAX_L1P = 1 << 14
-MAX_A = 128                # rows of the kernels' register-resident DP column
-TILE_T = 256               # columns per tile of forward_tiled (dp_tiled.cu)
+MAX_A = 128                # adapter rows of the widest instantiation
+TILE_T = 256               # columns per tile of forward_tiled (csrc/)
+SCAN_T = 1024              # columns per tile of forward_score, forward_stats
 _JKEY_BITS = 32            # leftmost-max key, int64: value * 2^32 + (2^32 - 1
 _JKEY = 1 << _JKEY_BITS    # - j); any column of any rung fits the low word
 _PAY_G_BIAS = 1 << 14      # stats payload: mat * 2^15 + (g + 2^14)
@@ -142,8 +151,13 @@ def build(build_dir: Path = BUILD_DIR) -> dict:
 @functools.cache
 def _lib(name: str):
     build()
-    lib = ctypes.CDLL(str(BUILD_DIR / (Path(SOURCES[name]).stem + '.so')))
-    fn = getattr(lib, 'pdp_' + name)
+    return bind(BUILD_DIR / (Path(SOURCES[name]).stem + '.so'), name)
+
+
+def bind(path, name: str):
+    """The C function pdp_<name> of the shared library at path, with its
+    argument types set."""
+    fn = getattr(ctypes.CDLL(str(path)), 'pdp_' + name)
     n_int, n_out = {'forward_score': (7, 1), 'forward_stats': (7, 4),
                     'forward_tiled': (8, 6)}[name]
     # reads, read_lens, adapters, adapter_lens; the ints; the outputs; the

@@ -87,6 +87,34 @@ def test_forward_tiled_matches_plain(card, A, ntiles):
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
 
 
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('ntiles', [1, 2, 3])
+def test_score_and_stats_match_plain(card, A, ntiles):
+    """The wavefront score and stats kernels against their plain versions
+    over 1, 2 and 3 of their SCAN_T-column tiles: lanes ending inside, at
+    and past a tile edge, four to a block with different lengths (41 lanes:
+    the last block holds one), and degenerate lanes (read length 0 and 1,
+    adapter length 0 and 1)."""
+    S = kernels.SCAN_T
+    L = ntiles * S - 1
+    reads, rl, adps, al = dp_batch(50 + ntiles, 41, L, A)
+    for k, edge in enumerate((S - 2, S - 1, S, S + 1, 2 * S - 1, 2 * S,
+                              2 * S + 1, 1, L, 0)):
+        if edge <= L:
+            rl[k] = edge
+    al[0], al[10], al[11] = A, 0, 1
+    cpu = to_torch(reads, rl, adps, al)
+    dev = [t.to(card) for t in cpu]
+    kernels.reset_launches()
+    assert torch.equal(kernels.forward_score(*dev, *SCHEME).cpu(),
+                       kernels.forward_score(*cpu, *SCHEME))
+    for g, w in zip(kernels.forward_stats(*dev, *SCHEME),
+                    kernels.forward_stats(*cpu, *SCHEME)):
+        assert torch.equal(g.cpu(), w)
+    assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
+                                'forward_tiled': 0}
+
+
 def test_forward_tiled_raises_past_128_rows_on_the_card(card):
     """A CUDA tensor launches the kernel or raises: no fallback to the
     plain version for adapters the kernel does not take."""

@@ -22,17 +22,28 @@ def _forbidden(module):
         or module.split('.')[0] == 'porechop_tpu')
 
 
-def test_source_has_no_jax_or_porechop_tpu_import():
+def _bad_imports(path):
     bad = []
-    for path in sorted(PKG.rglob('*.py')):
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                bad += [(path.name, a.name) for a in node.names
-                        if _forbidden(a.name)]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                if _forbidden(node.module):
-                    bad.append((path.name, node.module))
-    assert not bad
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            bad += [(path.name, a.name) for a in node.names
+                    if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module):
+                bad.append((path.name, node.module))
+    return bad
+
+
+def test_source_has_no_jax_or_porechop_tpu_import():
+    assert not [b for path in sorted(PKG.rglob('*.py'))
+                for b in _bad_imports(path)]
+
+
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'profile_torch.py',
+                                    'time_kernels.py'])
+def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
+    """The scripts run on the card's machine, which has no jax."""
+    assert not _bad_imports(PKG.parent / script)
 
 
 def test_port_runs_with_jax_and_porechop_tpu_blocked():
