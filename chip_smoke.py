@@ -10,7 +10,9 @@ path gives it (and times both), then runs the default trimming path end to
 end through porechop_tpu_torch.cli.main at -v 0 and at -v 1 on two inputs:
 8,192 synthetic 10 kb reads, and the long-read set (2,560 reads of 8-200
 kb, read N50 40 kb).  Each run must write the output FASTQ and the stdout
-transcript of the JAX package (by SHA-256) and launch every kernel.  The
+transcript of the JAX package (by SHA-256) and launch every kernel, and
+the long-read runs must cut at least one trace-bit launch into column
+chunks (kernels.split_plan).  The
 last line of stdout is the result: {"ok": true, "device":
 {...}}; before it, one {"kernels": [...]} line.  Any failure raises and
 exits non-zero without a result line.  It writes only under build/
@@ -99,7 +101,14 @@ KERNELS = {
                 ('middle coordinates and replay', 1024, 10240, 32),
                 ('middle coords, adapter rung 48', 1024, 10240, 64),
                 ('middle round 0, adapter rung 48', 1024, 24576, 64),
-                ('middle replay, rung 262,144', 128, 262144, 32)]),
+                ('middle replay, rung 262,144', 128, 262144, 32),
+                # Split launches that the long-read and 10 kb runs make
+                # (kernels.TILED_CALLS), and AMAX 128 for coverage only.
+                ('long-read, 32 lanes at rung 262,144', 32, 262144, 32),
+                ('long-read, 32 lanes at rung 131,072', 32, 131072, 32),
+                ('long-read, 128 lanes at rung 131,072', 128, 131072, 32),
+                ('10 kb, 512 lanes, adapter rung 48', 512, 10240, 48),
+                ('adapter rung 128, coverage only', 32, 131072, 128)]),
 }
 
 
@@ -198,9 +207,10 @@ def check_kernels(kernels):
 
 
 def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
-                  stdout_sha):
+                  stdout_sha, split=False):
     """One input through the default trimming run, on the card, at -v 0
-    and -v 1.  Returns {verbosity: launches of that run}."""
+    and -v 1; with split, each run must cut at least one trace-bit launch
+    into column chunks.  Returns {verbosity: launches of that run}."""
     from porechop_tpu_torch.utils.synth import write_fastq
     work.mkdir(parents=True, exist_ok=True)
     os.chdir(work)
@@ -228,6 +238,7 @@ def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[v] = dict(kernels.LAUNCHES)
+        tiled = sorted(kernels.TILED_CALLS.items())
         with open(out, 'rb') as f:
             got_out = hashlib.sha256(f.read()).hexdigest()
         text = buf.getvalue().replace(str(work), '<WORKDIR>')
@@ -237,6 +248,8 @@ def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
                   what, v, wall, n_reads / wall, n_bases / wall,
                   torch.cuda.max_memory_allocated() / 2 ** 20,
                   launches[v]), flush=True)
+        print('  forward_tiled launches by (lanes, L, A, chunks): %s'
+              % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
         if got_out != out_sha[v]:
             raise AssertionError('%s -v %d output FASTQ differs from the JAX '
                                  'package (sha256 %s)' % (what, v, got_out))
@@ -249,6 +262,9 @@ def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
         if idle:
             raise AssertionError('%s -v %d never launched %s'
                                  % (what, v, idle))
+        if split and not any(k[3] > 1 for k, _ in tiled):
+            raise AssertionError('%s -v %d never split a trace-bit launch'
+                                 % (what, v))
     os.chdir(ROOT)
     return launches
 
@@ -278,6 +294,9 @@ def main():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print('  %s: %s' % (name, line.strip()), flush=True)
 
+    print('trace-bit kernel, warps the card holds at once by AMAX: %s'
+          % {a: kernels.card_warps(a) for a in (32, 64, 128)}, flush=True)
+
     from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
                                                  synth_mixed, synth_reads)
     timings = check_kernels(kernels)
@@ -288,7 +307,7 @@ def main():
     runs['long-read'] = run_main_path(
         cli, kernels, 'long-read', WORK / 'long',
         lambda: synth_mixed(LONG_READ_PARTS), LONG_READS_SHA, LONG_OUT_SHA,
-        LONG_STDOUT_SHA)
+        LONG_STDOUT_SHA, split=True)
 
     line = []
     for name, spec_ in KERNELS.items():

@@ -46,7 +46,14 @@
 //                                          time with 16-byte stores
 // SCORE and STATS need almost no shared memory, so 4-warp blocks let an SM
 // hold all 64 of its warps (a one-warp block caps it at 32 blocks); BITS's
-// trace-byte buffer (8.4-33 KB per warp) bounds its warps per SM first.
+// trace-byte buffer (8.4-33 KB per warp) bounds its warps per SM first
+// (dp_tiled.cu pdp_tiled_warps asks the runtime how many).
+//
+// BITS may also cut a lane into column chunks, one warp each, every chunk
+// but the first starting with a warm-up sweep whose length is proven to
+// make its values exact (dp_tiled.cu: the split, the proof, and the fold
+// of the chunks' scouts); ops/kernels.py split_plan picks the chunks so
+// that a launch of few long lanes fills the card.
 //
 // Scouts: the thread holding row adapter_len keeps the last-row leftmost
 // maximum over columns [0, read_len) with a strict > in increasing j; the
@@ -58,13 +65,16 @@
 // keeps a per-thread max over the last column and the last row, then a
 // warp max.
 //
-// What bounds it on an H100: the instruction rate when a launch holds many
-// lanes (a step is two or four shuffles, the boundary selects, and R cells
-// of integer operations), and the dependent chain of one step when it holds
-// few: a lane takes read_len + 31 x tiles steps however wide the card.
+// What bounds it on an H100: the instruction rate (a step is two or four
+// shuffles, the boundary selects, and R cells of integer operations) once a
+// launch holds enough warps.  A lane takes read_len + 31 x tiles dependent
+// steps however wide the card, so a SCORE or STATS launch of few lanes is
+// still bound by that chain; BITS splits such a launch into column chunks
+// and pays the warm-up instead.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace pdp {
@@ -91,6 +101,11 @@ __host__ __device__ constexpr int smem_of(int mode, int amax) {  // per warp
 // Error codes returned to the Python wrapper besides cudaError_t values.
 constexpr int ERR_ADAPTER_TOO_LONG = 100000;
 constexpr int ERR_BAD_L1P = 100001;
+constexpr int ERR_BAD_SPLIT = 100002;
+
+// BITS split into column chunks: ints per (chunk, lane) partial scout --
+// last-row score, column and flags, final-column score and key.
+constexpr int PART_INTS = 5;
 
 struct Args {
   const int8_t* reads;       // (B, L) Dna5 codes 0..4
@@ -107,6 +122,37 @@ struct Args {
   uint8_t* hflag;
   uint8_t* bits;             // (A, B, L1p) trace bits
 };
+
+// BITS's arguments: Args and the column split.  (Score and stats keep Args
+// alone: with the split's fields in Args, ptxas built the stats kernel with
+// fewer registers and 3.6-4.6% slower at three of its four shapes,
+// time_kernels.py on an H100.)
+struct BitsArgs : Args {
+  int nch, chunk_cols, warm_cols;  // column chunks of a lane
+  int32_t* part;                   // (nch, B, PART_INTS), nch > 1
+};
+
+template <int MODE>
+using ArgsOf = std::conditional_t<MODE == BITS, BitsArgs, Args>;
+
+__device__ __forceinline__ int lane_len(const int32_t* lens, int b, int cap) {
+  return min(max(lens[b], 0), cap);
+}
+
+// The column-against-row election of the trace-bit forward: the
+// final-column scout (score tsc, key (row << 2) | (V flag << 1) | H flag)
+// wins only if strictly better than the last-row scout.
+__device__ __forceinline__ void write_bits_cell(const BitsArgs& p, int b,
+                                                int alen, int rlen, int tsc,
+                                                int tkey, int rsc, int rj,
+                                                int rflags) {
+  const bool col_wins = tsc > rsc;
+  p.best[b] = col_wins ? tsc : rsc;
+  p.cell_i[b] = col_wins ? tkey >> 2 : alen;
+  p.cell_j[b] = col_wins ? rlen : rj;
+  p.vflag[b] = col_wins ? (tkey >> 1) & 1 : (rflags >> 1) & 1;
+  p.hflag[b] = col_wins ? tkey & 1 : rflags & 1;
+}
 
 // One DP cell (i, j), from M(i-1, j-1) = mdiag, M(i-1, j) = mup,
 // V(i-1, j) = vup and H(i, j) = h (computed at column j-1).
@@ -165,7 +211,7 @@ __device__ __forceinline__ uint8_t col0_byte(int go, int ge) {
 
 template <int MODE, int AMAX>
 __global__ void __launch_bounds__(32 * warps_of(MODE))
-dp_wave_kernel(Args p) {
+dp_wave_kernel(ArgsOf<MODE> p) {
   constexpr int R = AMAX / 32;
   constexpr int T = tile_of(MODE);
   constexpr int W = warps_of(MODE), SMEM = smem_of(MODE, AMAX);
@@ -175,13 +221,26 @@ dp_wave_kernel(Args p) {
 
   const int t = threadIdx.x & 31;
   const int w = W > 1 ? threadIdx.x >> 5 : 0;
-  const int b = blockIdx.x * W + w;
+  // BITS: block k * B + b sweeps column chunk k of lane b (k = 0 unsplit).
+  const int b = BI ? (int)(blockIdx.x % p.B) : blockIdx.x * W + w;
   if (b >= p.B) return;                // the whole warp: one lane per warp
   uint8_t* sread = smem + w * SMEM;
   uint8_t* sbits = sread + T;          // BITS: [adapter row][T] trace bytes
 
-  const int rlen = min(max(p.read_lens[b], 0), p.L);
-  const int alen = min(max(p.adapter_lens[b], 0), p.A);
+  const int rlen = lane_len(p.read_lens, b, p.L);
+  const int alen = lane_len(p.adapter_lens, b, p.A);
+  // Own columns [c0, c1), after a warm-up over [w0, c0) that writes no
+  // trace bytes and scouts nothing.  A chunk starting past read_len has no
+  // column to own.
+  int k = 0, c0 = 0, c1 = rlen + 1, w0 = 0;
+  if constexpr (BI) {
+    k = blockIdx.x / p.B;
+    c0 = k * p.chunk_cols;
+    if (c0 > rlen) return;
+    c1 = min(c0 + p.chunk_cols, rlen + 1);
+    w0 = max(c0 - p.warm_cols, 0);
+  }
+  const bool cold = w0 > 0;            // start from the lower-bound boundary
   const int ma = p.match, mm = p.mismatch, go = p.gap_open, ge = p.gap_ext;
   const int8_t* read = p.reads + (size_t)b * p.L;
   const int8_t* adp = p.adapters + (size_t)b * p.A;
@@ -197,10 +256,10 @@ dp_wave_kernel(Args p) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     acode[r] = row0 + r < alen ? adp[row0 + r] : -1;
-    M[r] = 0;
-    Hn[r] = h_col1(go, ge);
+    M[r] = cold ? NEG : 0;               // M(i, w0 - 1)
+    Hn[r] = cold ? NEG : h_col1(go, ge); // H(i, max(w0, 1))
     if constexpr (BI) {
-      if ((NEG + ge) >= go) hb |= 1u << r;
+      if (!cold && (NEG + ge) >= go) hb |= 1u << r;
     }
     if constexpr (ST) {
       PM[r] = P0;
@@ -209,25 +268,28 @@ dp_wave_kernel(Args p) {
   }
 
   int m_out = 0, v_out = NEG;  // M, V of this thread's last row, last column
-  int m_prev = 0;              // M(row0 - 1, j - 1), received a step earlier
+  int m_prev = cold ? NEG : 0; // M(row0 - 1, j - 1), received a step earlier
   int pm_out = P0, pv_out = P0, pm_prev = P0;   // STATS: their payloads
   int best = 0;                                 // SCORE
   const bool last_row_here = alen > 0 && t == last_row / R;
   int tsc = 0, ti = 0, tpay = P0;
   bool tvf = false, thf = false;
-  int rsc = rlen > 0 ? 0 : -(1 << 30) - (1 << 29), rj = 0, rpay = P0;
+  // The last-row scout starts at column 0 (M = 0) in the chunk holding it.
+  int rsc = rlen > 0 && k == 0 ? 0 : -(1 << 30) - (1 << 29), rj = 0;
+  int rpay = P0;
   bool rvf = false, rhf = false;
 
-  const int ntiles = (rlen + T) / T;   // columns 0..rlen
-  for (int tile = 0; tile < ntiles; ++tile) {
+  const int tile_hi = (c1 + T - 1) / T;  // columns w0..c1 - 1
+  for (int tile = w0 / T; tile < tile_hi; ++tile) {
     const int jlo = tile * T;
-    const int jhi = min(jlo + T, rlen + 1);
+    const int jhi = min(jlo + T, c1);
+    const bool own = !BI || jlo >= c0;   // c0 is a multiple of T
     for (int c = t; c < jhi - jlo; c += 32) {    // column j holds read[j-1]
       const int j = jlo + c;
       sread[c] = j > 0 ? (uint8_t)read[j - 1] : (uint8_t)4;
     }
     if constexpr (BI) {
-      if (tile == 0) {
+      if (jlo == 0) {
         const uint8_t b0 = col0_byte(go, ge);
 #pragma unroll
         for (int r = 0; r < R; ++r)
@@ -236,7 +298,7 @@ dp_wave_kernel(Args p) {
     }
     __syncwarp();
 
-    const int jstart = max(jlo, 1);
+    const int jstart = BI ? max(max(jlo, w0), 1) : max(jlo, 1);
     const int nsteps = jhi - jlo + (nt > 0 ? nt - 1 : 0);
     for (int s = 0; s < nsteps; ++s) {
       const int m_in = __shfl_up_sync(FULL_MASK, m_out, 1);
@@ -302,7 +364,7 @@ dp_wave_kernel(Args p) {
                 thf = !tvf && h == c.m;
                 tpay = tvf ? pv : (thf ? ph : pm);
               }
-            } else if (i == last_row && c.m > rsc) {
+            } else if (own && i == last_row && c.m > rsc) {
               rsc = c.m;
               rj = j;
               rvf = c.v == c.m;
@@ -327,12 +389,15 @@ dp_wave_kernel(Args p) {
     __syncwarp();
 
     if constexpr (BI) {
-      // Rows < adapter_len, columns [jlo, jhi) rounded up to 16 bytes.
-      const int nq = (jhi - jlo + 15) / 16;
-      for (int k = t; k < alen * nq; k += 32) {
-        const int i = k / nq, q = k % nq;
-        *reinterpret_cast<uint4*>(lane_bits + i * plane + jlo + 16 * q) =
-            *reinterpret_cast<const uint4*>(sbits + i * T + 16 * q);
+      // Rows < adapter_len, columns [jlo, jhi) rounded up to 16 bytes: a
+      // chunk's own columns, which end on a tile edge but in the last chunk.
+      if (own) {
+        const int nq = (jhi - jlo + 15) / 16;
+        for (int n = t; n < alen * nq; n += 32) {
+          const int i = n / nq, q = n % nq;
+          *reinterpret_cast<uint4*>(lane_bits + i * plane + jlo + 16 * q) =
+              *reinterpret_cast<const uint4*>(sbits + i * T + 16 * q);
+        }
       }
       __syncwarp();
     }
@@ -368,28 +433,39 @@ dp_wave_kernel(Args p) {
                                    owner);
     if constexpr (ST) rpay = __shfl_sync(FULL_MASK, rpay, owner);
     if (t == 0) {
-      const bool col_wins = tsc > rsc;
-      p.best[b] = col_wins ? tsc : rsc;
-      p.cell_i[b] = col_wins ? tkey >> 2 : alen;
-      p.cell_j[b] = col_wins ? rlen : rj;
       if constexpr (BI) {
-        p.vflag[b] = col_wins ? (tkey >> 1) & 1 : (rflags >> 1) & 1;
-        p.hflag[b] = col_wins ? tkey & 1 : rflags & 1;
+        if (p.nch > 1) {       // folded across chunks by bits_fold_kernel
+          int32_t* q = p.part + ((size_t)k * p.B + b) * PART_INTS;
+          q[0] = rsc;
+          q[1] = rj;
+          q[2] = rflags;
+          q[3] = tsc;
+          q[4] = tkey;
+        } else {
+          write_bits_cell(p, b, alen, rlen, tsc, tkey, rsc, rj, rflags);
+        }
+      } else {
+        const bool col_wins = tsc > rsc;
+        p.best[b] = col_wins ? tsc : rsc;
+        p.cell_i[b] = col_wins ? tkey >> 2 : alen;
+        p.cell_j[b] = col_wins ? rlen : rj;
+        p.pay[b] = col_wins ? tpay : rpay;
       }
-      if constexpr (ST) p.pay[b] = col_wins ? tpay : rpay;
     }
   }
 }
 
 template <int MODE, int AMAX>
-int launch_wave(const Args& p, cudaStream_t stream) {
+int launch_wave(const ArgsOf<MODE>& p, cudaStream_t stream) {
   constexpr int W = warps_of(MODE);
   const int smem = W * smem_of(MODE, AMAX);
   auto kern = dp_wave_kernel<MODE, AMAX>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.B + W - 1) / W);
+  int blocks = (p.B + W - 1) / W;
+  if constexpr (MODE == BITS) blocks = p.B * p.nch;
+  const dim3 grid(blocks);
   const dim3 block(32 * W);
   kern<<<grid, block, smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -398,7 +474,7 @@ int launch_wave(const Args& p, cudaStream_t stream) {
 // Launches the instantiation whose rows cover A and returns 0 or an error
 // code (cudaGetLastError() after the launch).
 template <int MODE>
-int launch(const Args& p, cudaStream_t stream) {
+int launch(const ArgsOf<MODE>& p, cudaStream_t stream) {
   if (p.B <= 0) return 0;
   if (p.A <= 32) return launch_wave<MODE, 32>(p, stream);
   if (p.A <= 64) return launch_wave<MODE, 64>(p, stream);

@@ -18,7 +18,10 @@ anti-diagonal: thread t owns adapter rows [R t, R t + R), R = AMAX / 32
 warp shuffle.  Every kernel takes any L: a lane stops at its own read
 length.  Score and stats run four lanes to a block in SCAN_T-column tiles,
 the trace-bit forward one lane to a block in TILE_T-column tiles whose
-trace bytes are staged in shared memory.
+trace bytes are staged in shared memory; a launch of few long lanes cuts
+each lane into column chunks, one warp each, after a proven warm-up, so
+that it fills the card (split_plan, card_warps, csrc/dp_tiled.cu), and a
+small second kernel there folds the chunks' scouts.
 
 A wrapper runs its plain version when the tensors it is given lie on the
 CPU, launches its kernel when they lie on a CUDA device, and raises for
@@ -36,6 +39,7 @@ the JAX kernels'; trace bits off that path may differ from theirs.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -62,9 +66,16 @@ _OKEY = 1 << 24            # earliest-opener key of the plain stats H scan
 
 B_HEXT, B_VEXT, B_DIAG, B_MAXV, B_EQ = 1, 2, 4, 8, 16
 
+# forward_tiled's column split (split_plan): the least chunk, in warm-ups.
+MIN_CHUNK_WARMS = 8
+PART_INTS = 5              # ints per (chunk, lane) partial scout (csrc/)
+
 # Launches of each kernel since the counter was last reset.  A wrapper adds
 # one where it launches its kernel, and nowhere else.
 LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0}
+# forward_tiled launches by (lanes, L, A, chunks per lane), reset with
+# LAUNCHES.
+TILED_CALLS = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
@@ -84,6 +95,37 @@ def supports(scoring) -> bool:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TILED_CALLS.clear()
+
+
+def warm_bound(A: int, scoring):
+    """Warm-up columns D after which a chunk of forward_tiled started from
+    the lower-bound boundary holds exact M, V and H (proof in
+    csrc/dp_tiled.cu): D = A + 2 + ceil(A (s_hi - s_lo) / |gap_ext|), or
+    None when gap_ext >= 0 gives no bound."""
+    match, mismatch, _, gap_ext = scoring
+    if gap_ext >= 0:
+        return None
+    spread = max(match, mismatch, 0) - min(match, mismatch, 0)
+    return A + 2 + -(-A * spread // -gap_ext)
+
+
+def split_plan(B: int, L: int, A: int, scoring, warps: int):
+    """(chunk_cols, warm_cols) of a forward_tiled launch of B lanes of
+    window L at adapter width A on a card that holds `warps` of the
+    kernel's warps at once (card_warps): chunks of a lane's columns, one
+    warp each, so that B x chunks warps fill the card in one wave, every
+    chunk at least MIN_CHUNK_WARMS warm-ups long.  One chunk
+    (tiled_l1p(L), 0) when B alone fills the card, when gap_ext >= 0, or
+    when the window is too short to pay the warm-up."""
+    one = (tiled_l1p(L), 0)
+    D = warm_bound(A, scoring)
+    n = warps // B
+    if D is None or n < 2:
+        return one
+    warm = -(-D // TILE_T) * TILE_T
+    chunk = max(-(-(L + 1) // (n * TILE_T)) * TILE_T, MIN_CHUNK_WARMS * warm)
+    return one if chunk >= L + 1 else (chunk, warm)
 
 
 def score_prefilter_coef(threshold, match, mismatch, gap_open, gap_ext):
@@ -156,16 +198,40 @@ def _lib(name: str):
 
 def bind(path, name: str):
     """The C function pdp_<name> of the shared library at path, with its
-    argument types set."""
-    fn = getattr(ctypes.CDLL(str(path)), 'pdp_' + name)
+    argument types set; for forward_tiled, with the library's
+    pdp_tiled_warps(A, int *warps) as its attribute `warps`."""
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, 'pdp_' + name)
     n_int, n_out = {'forward_score': (7, 1), 'forward_stats': (7, 4),
-                    'forward_tiled': (8, 6)}[name]
+                    'forward_tiled': (10, 7)}[name]
     # reads, read_lens, adapters, adapter_lens; the ints; the outputs; the
     # stream.
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p] * (n_out + 1))
     fn.restype = ctypes.c_int
+    if name == 'forward_tiled':
+        fn.warps = lib.pdp_tiled_warps
+        fn.warps.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.warps.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def card_warps(A: int, device_index=None) -> int:
+    """The one-warp blocks of forward_tiled's kernel for adapter width A
+    that the card holds at once, as its runtime reports them (the
+    occupancy at the kernel's shared memory times the SMs), read once per
+    adapter width and device.  The kernels run on the current device."""
+    if A > MAX_A:
+        raise NotImplementedError(
+            'forward_tiled: adapters longer than %d bp are not supported by '
+            'the CUDA kernel' % MAX_A)
+    n = ctypes.c_int(0)
+    rc = _lib('forward_tiled').warps(A, ctypes.byref(n))
+    if rc != 0 or n.value <= 0:
+        raise RuntimeError('forward_tiled: occupancy query failed with code '
+                           '%d (%d warps)' % (rc, n.value))
+    return n.value
 
 
 def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
@@ -176,8 +242,8 @@ def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
     fn = _lib(name)
     stream = torch.cuda.current_stream(reads.device).cuda_stream
     rc = fn(reads.data_ptr(), read_lens.data_ptr(), adapters.data_ptr(),
-            adapter_lens.data_ptr(), *ints, *(o.data_ptr() for o in outs),
-            stream)
+            adapter_lens.data_ptr(), *ints,
+            *(None if o is None else o.data_ptr() for o in outs), stream)
     if rc != 0:
         raise RuntimeError('%s: kernel launch failed with code %d' % (name,
                                                                       rc))
@@ -254,7 +320,8 @@ def forward_tiled(reads, read_lens, adapters, adapter_lens,
     tiled_l1p(L).  Bits are specified for rows < adapter_len and columns
     <= read_len, the region the walker reads.  Every trace-bit forward of
     the port, short windows (kernel_pallas.forward_pallas) and long
-    (forward_pallas_tiled) alike."""
+    (forward_pallas_tiled) alike.  The kernel cuts each lane into the
+    column chunks of split_plan."""
     if not _check(reads, read_lens, adapters, adapter_lens):
         return forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
@@ -268,9 +335,15 @@ def forward_tiled(reads, read_lens, adapters, adapter_lens,
     vf, hf = (torch.empty(B, dtype=torch.uint8, device=dev)
               for _ in range(2))
     if B:
+        chunk, warm = split_plan(B, L, A, (match, mismatch, gap_open,
+                                           gap_ext), card_warps(A, dev.index))
+        nch = L // chunk + 1
+        part = (torch.empty((nch, B, PART_INTS), dtype=torch.int32,
+                            device=dev) if nch > 1 else None)
         _launch('forward_tiled', reads, read_lens, adapters, adapter_lens,
-                (B, L, A, L1p, match, mismatch, gap_open, gap_ext),
-                (bits, best, ci, cj, vf, hf))
+                (B, L, A, L1p, match, mismatch, gap_open, gap_ext, chunk,
+                 warm), (bits, best, ci, cj, vf, hf, part))
+        TILED_CALLS[(B, L, A, nch)] += 1
     return bits, best, ci, cj, vf != 0, hf != 0
 
 

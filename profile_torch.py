@@ -10,7 +10,8 @@ chip_smoke.py (build/smoke/reads.fastq or build/smoke/long/reads.fastq,
 made if missing) three times: to warm up, to time it (wall per phase on
 the host clock, each phase ending in a device synchronise, and the peak
 device memory), and under torch.profiler (the device's busy time, the sum
-of its kernel times, and the CUDA kernels by total device time).  It
+of its kernel times, the CUDA kernels by total device time, and every
+kernel of csrc/).  It
 prints one JSON line per verbosity; the idle share is 1 - busy / the
 unprofiled wall.  The full profiler tables go to build/profile/ (or
 build/profile/long/).
@@ -95,6 +96,7 @@ def main(argv=None):
         wall = run()                            # clean wall and phases
         phase_walls = dict(walls)
         launches = dict(kernels.LAUNCHES)
+        tiled_calls = [[*k, n] for k, n in sorted(kernels.TILED_CALLS.items())]
         peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -114,12 +116,18 @@ def main(argv=None):
             'input': 'long-read' if long_reads else '10 kb',
             'verbosity': v, 'wall_s': wall, 'reads_per_s': n_reads / wall,
             'phase_wall_s': phase_walls, 'launches': launches,
+            'tiled_calls_lanes_L_A_chunks_n': tiled_calls,
             'peak_device_mib': peak_mib,
             'profiled_wall_s': prof_wall, 'device_busy_s': busy_s,
             'device_idle_share': 1 - busy_s / wall,
             'top_kernels': [
                 {'name': n[:80], 'ms': us * 1e-3, 'calls': count[n]}
-                for n, us in by_kernel.most_common(12)]}), flush=True)
+                for n, us in by_kernel.most_common(12)],
+            'dp_kernels': [
+                {'name': n[:80], 'ms': us * 1e-3, 'calls': count[n]}
+                for n, us in by_kernel.most_common()
+                if 'dp_wave_kernel' in n or 'bits_fold_kernel' in n]}),
+              flush=True)
     return 0
 
 

@@ -7,7 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from porechop_tpu_torch.ops import kernels
+
 SCHEME = (3, -6, -5, -2)
+# Warps of the trace-bit kernel an H100 SXM holds at once, by AMAX: 132 SMs
+# x 24, 13 and 6 one-warp blocks, bounded by the trace-byte buffer
+# (kernels.card_warps on the card; chip_smoke.py prints it).
+H100_WARPS = {32: 132 * 24, 64: 132 * 13, 128: 132 * 6}
 
 
 @pytest.fixture(scope='module')
@@ -84,6 +90,85 @@ def to_torch(*arrays):
 
 def decode(codes):
     return ''.join('ACGTN'[c] for c in codes)
+
+
+def plan_warm(A, scheme):
+    """The warm-up split_plan passes: the proven bound rounded up to
+    TILE_T."""
+    T = kernels.TILE_T
+    return -(-kernels.warm_bound(A, scheme) // T) * T
+
+
+def plant(reads, adps, al, k, last_col):
+    """Lane k's adapter, copied perfectly into the columns ending at
+    last_col (column j holds read[j - 1])."""
+    n = int(al[k])
+    reads[k, last_col - n:last_col] = adps[k, :n]
+
+
+def split_batch(A, C):
+    """Lanes around the chunk edges of C columns: read lengths ending in the
+    first chunk, on a chunk's first column, inside a later chunk's warm-up
+    and just before a chunk starts (0 and 1 too); perfect adapter copies
+    ending just before a chunk edge and straddling one, the same copy on
+    both sides of an edge (a tie the leftmost column must win), and N runs
+    straddling every edge."""
+    L = 1300
+    lens = [L, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 3 * C - 1, 0,
+            1, 700, L]
+    reads, rl, adps, al = dp_batch(60 + A + C, len(lens), L, A)
+    rl[:] = [min(x, L) for x in lens]
+    al[0], al[4], al[10], al[11] = A, A // 2, A, A
+    plant(reads, adps, al, 0, 2 * C - 1)
+    plant(reads, adps, al, 3, C + 1)
+    plant(reads, adps, al, 4, C - 1)
+    plant(reads, adps, al, 4, 2 * C - 1)
+    plant(reads, adps, al, 10, C - 1)
+    plant(reads, adps, al, 11, C + A // 2)
+    for c in range(C, L, C):
+        reads[7, c - 20:c + 20] = 4
+        reads[11, c + A:c + A + 10] = 4
+    return to_torch(reads, rl, adps, al)
+
+
+def call_tiled(fn, batch, scheme, chunk=None, warm=0, stream=None):
+    """A built pdp_forward_tiled (kernels.bind) on the batch's device, in
+    the wrapper's output form, with each lane cut into chunks of `chunk`
+    columns after `warm` columns of warm-up (one chunk by default).  The
+    bits start as junk, so a byte of the walker's region that no chunk
+    writes shows."""
+    reads, rl, adps, al = batch
+    B, L = reads.shape
+    A = adps.shape[1]
+    L1p = kernels.tiled_l1p(L)
+    chunk = chunk or L1p
+    nch = L // chunk + 1
+    dev = dict(device=reads.device)
+    bits = torch.full((A, B, L1p), 0xa5, dtype=torch.uint8, **dev)
+    cells = [torch.empty(B, dtype=torch.int32, **dev) for _ in range(3)]
+    flags = [torch.empty(B, dtype=torch.uint8, **dev) for _ in range(2)]
+    part = (torch.empty((nch, B, kernels.PART_INTS), dtype=torch.int32,
+                        **dev) if nch > 1 else None)
+    rc = fn(*(x.data_ptr() for x in batch), B, L, A, L1p, *scheme, chunk,
+            warm, *(x.data_ptr() for x in (bits, *cells, *flags)),
+            None if part is None else part.data_ptr(), stream)
+    assert rc == 0, rc
+    return bits, *cells, flags[0] != 0, flags[1] != 0
+
+
+def tiled_diffs(got, want, batch):
+    """Names of the trace-bit outputs that differ, the bits compared in the
+    walker's region (rows < adapter_len, columns <= read_len) lane by
+    lane."""
+    diffs = [name for name, g, w in zip(('best', 'cell_i', 'cell_j',
+                                          'vflag', 'hflag'), got[1:],
+                                         want[1:]) if not torch.equal(g, w)]
+    rl, al = batch[1], batch[3]
+    for k in range(len(rl)):
+        rows, cols = int(al[k]), int(rl[k]) + 1
+        if not torch.equal(got[0][:rows, k, :cols], want[0][:rows, k, :cols]):
+            diffs.append('bits of lane %d' % k)
+    return diffs
 
 
 @pytest.mark.parametrize('seed,B,L,A', [(5, 32, 60, 12), (7, 32, 700, 32)])

@@ -20,16 +20,20 @@ block) and anything of the card's compiler; only the card tests
 Tolerance: exact; every output is an integer.
 """
 
+import ctypes
 import re
 import shutil
 import subprocess
+import types
 
 import pytest
 import torch
 
 from porechop_tpu_torch.ops import kernels
 
-from .test_torch_cases import SCHEME, dp_batch, one_torch_thread, to_torch
+from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, dp_batch,
+                               one_torch_thread, plan_warm, plant,
+                               split_batch, tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
@@ -64,6 +68,25 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// The occupancy queries answer for an H100-like card: 132 SMs, 228 KB of
+// shared memory per SM with 1 KB reserved per block, at most 32 blocks.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, F, int, size_t smem) {
+  const int by_smem = (int)(228 * 1024 / (smem + 1024));
+  *n = by_smem < 32 ? by_smem : 32;
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -194,43 +217,22 @@ def _run(fn, batch, ints, outs):
     assert rc == 0, rc
 
 
-def _host_forwards(fns, batch, scheme):
-    """(score, stats, tiled) of the host-built kernels, in the wrappers'
-    output forms."""
+def _assert_match_plain(fns, batch, scheme):
     reads, rl, adps, al = batch
     B, L = reads.shape
     A = adps.shape[1]
-    i32 = dict(dtype=torch.int32)
-    score = torch.empty(B, **i32)
+    score = torch.empty(B, dtype=torch.int32)
     _run(fns['forward_score'], batch, (B, L, A, *scheme), (score,))
-    stats = [torch.empty(B, **i32) for _ in range(4)]
+    stats = [torch.empty(B, dtype=torch.int32) for _ in range(4)]
     _run(fns['forward_stats'], batch, (B, L, A, *scheme), stats)
-    L1p = kernels.tiled_l1p(L)
-    bits = torch.empty((A, B, L1p), dtype=torch.uint8)
-    cells = [torch.empty(B, **i32) for _ in range(3)]
-    flags = [torch.empty(B, dtype=torch.uint8) for _ in range(2)]
-    _run(fns['forward_tiled'], batch, (B, L, A, L1p, *scheme),
-         (bits, *cells, *flags))
-    return (score, kernels._decode_stats(*stats, rl, al),
-            (bits, *cells, flags[0] != 0, flags[1] != 0))
-
-
-def _assert_match_plain(fns, batch, scheme):
-    score, stats, tiled = _host_forwards(fns, batch, scheme)
     assert torch.equal(score, kernels.forward_score_plain(*batch, *scheme))
     for name, g, w in zip(('best', 'cell_i', 'cell_j', 'matches',
-                           'full_len'), stats,
+                           'full_len'), kernels._decode_stats(*stats, rl, al),
                           kernels.forward_stats_plain(*batch, *scheme)):
         assert torch.equal(g, w), name
-    want = kernels.forward_tiled_plain(*batch, *scheme)
-    for name, g, w in zip(('best', 'cell_i', 'cell_j', 'vflag', 'hflag'),
-                          tiled[1:], want[1:]):
-        assert torch.equal(g, w), name
-    rl, al = batch[1], batch[3]
-    for k in range(len(rl)):
-        rows, cols = int(al[k]), int(rl[k]) + 1
-        assert torch.equal(tiled[0][:rows, k, :cols],
-                           want[0][:rows, k, :cols]), k
+    assert tiled_diffs(call_tiled(fns['forward_tiled'], batch, scheme),
+                       kernels.forward_tiled_plain(*batch, *scheme),
+                       batch) == []
 
 
 def _edge_batch(seed, L, A, lens):
@@ -271,6 +273,87 @@ def test_csrc_matches_plain_across_scan_tiles(host_kernels, A):
     lens = [S - 2, S - 1, S, S + 1, 2 * S - 1, 2 * S, 2 * S + 1, 0, 1, 700]
     _assert_match_plain(host_kernels, _edge_batch(40 + A, 2 * S + 1, A, lens),
                         SCHEME)
+
+
+@pytest.mark.parametrize('C', [T, 2 * T])
+@pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
+@pytest.mark.parametrize('A', [24, 48, 100])         # AMAX 32, 64 and 128
+def test_split_matches_plain(host_kernels, A, scheme, C):
+    """The trace-bit forward with every lane cut into chunks of C columns,
+    each after the plan's warm-up, equals the unsplit plain version: the
+    bits in the walker's region and the elected cell and flags."""
+    batch = split_batch(A, C)
+    got = call_tiled(host_kernels['forward_tiled'], batch, scheme, C,
+                     plan_warm(A, scheme))
+    assert tiled_diffs(got, kernels.forward_tiled_plain(*batch, *scheme),
+                       batch) == []
+
+
+def test_split_with_a_short_warm_up_goes_wrong(host_kernels):
+    """The test sees a warm-up below the bound: with a perfect adapter copy
+    ending just before a chunk starts, 16 columns of warm-up leave the
+    chunk's values short of the copy's score, and its bits differ; the
+    plan's warm-up on the same lanes is exact."""
+    A = 24
+    reads, rl, adps, al = dp_batch(77, 4, 700, A)
+    rl[:] = 700
+    al[:] = A
+    for k in range(4):
+        plant(reads, adps, al, k, T - 1 - 3 * k)
+    batch = to_torch(reads, rl, adps, al)
+    fn = host_kernels['forward_tiled']
+    want = kernels.forward_tiled_plain(*batch, *SCHEME)
+    assert tiled_diffs(call_tiled(fn, batch, SCHEME, T, 16), want, batch)
+    assert tiled_diffs(call_tiled(fn, batch, SCHEME, T,
+                                  plan_warm(A, SCHEME)), want, batch) == []
+
+
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_tiled_warps_queries_each_instantiation(host_kernels, A):
+    """pdp_tiled_warps asks the runtime's occupancy query for the
+    instantiation that serves A, with its shared memory: the stub's
+    H100-like card answers what an H100 does."""
+    n = ctypes.c_int(0)
+    assert host_kernels['forward_tiled'].warps(A, ctypes.byref(n)) == 0
+    assert n.value == H100_WARPS[{24: 32, 48: 64, 100: 128}[A]]
+
+
+def test_tiled_warps_refuses_past_128_rows(host_kernels):
+    n = ctypes.c_int(0)
+    assert host_kernels['forward_tiled'].warps(129, ctypes.byref(n)) != 0
+
+
+def test_wrapper_splits_by_its_plan(host_kernels, monkeypatch):
+    """kernels.forward_tiled's own launch path (the card's warps from the
+    occupancy query, split_plan, the scratch for the chunks' scouts, the
+    launch and shape counters) on the host-built kernel: three 4.5 kb lanes
+    split into 2,048-column chunks and equal the plain version."""
+    monkeypatch.setattr(kernels, '_check', lambda *args: True)
+    monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    L, A = 4500, 24
+    assert kernels.split_plan(3, L, A, SCHEME, H100_WARPS[32]) == (2048, 256)
+    reads, rl, adps, al = dp_batch(91, 3, L, A)
+    rl[:] = L, 2048, 4097
+    al[:] = A
+    plant(reads, adps, al, 0, 2047)
+    plant(reads, adps, al, 1, 2048)
+    plant(reads, adps, al, 2, 4096 + A // 2)
+    batch = to_torch(reads, rl, adps, al)
+    kernels.reset_launches()
+    kernels.card_warps.cache_clear()
+    try:
+        got = kernels.forward_tiled(*batch, *SCHEME)
+        assert kernels.card_warps(32) == H100_WARPS[32]
+    finally:
+        kernels.card_warps.cache_clear()
+    assert kernels.TILED_CALLS == {(3, L, A, 3): 1}
+    assert kernels.LAUNCHES['forward_tiled'] == 1
+    assert tiled_diffs(got, kernels.forward_tiled_plain(*batch, *SCHEME),
+                       batch) == []
+    kernels.reset_launches()
 
 
 def test_host_source_rewrites_launch_and_shared_memory():

@@ -20,7 +20,9 @@ from porechop_tpu_torch import cli
 from porechop_tpu_torch.ops import kernels
 from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
 
-from .test_torch_cases import SCHEME, dp_batch, gap_run_batch, to_torch
+from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, dp_batch,
+                               gap_run_batch, plan_warm, plant, split_batch,
+                               tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +115,62 @@ def test_score_and_stats_match_plain(card, A, ntiles):
         assert torch.equal(g.cpu(), w)
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
                                 'forward_tiled': 0}
+
+
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_forward_tiled_splits_few_lanes(card, A):
+    """Eight lanes of a 40 kb window: the wrapper cuts each into the column
+    chunks of split_plan (its shape record says how many), and the result
+    equals the plain version.  Lanes end on and beside chunk edges, with
+    perfect adapter copies just before and across them."""
+    L = 40000
+    chunk, warm = kernels.split_plan(8, L, A, SCHEME, kernels.card_warps(A))
+    nch = L // chunk + 1
+    assert nch > 1 and warm >= kernels.warm_bound(A, SCHEME)
+    reads, rl, adps, al = dp_batch(70 + A, 8, L, A)
+    rl[:6] = L, L - 1, chunk, chunk - 1, 2 * chunk + 1, 3 * chunk
+    al[:4] = A
+    plant(reads, adps, al, 0, chunk - 1)
+    plant(reads, adps, al, 1, 2 * chunk + A // 2)
+    plant(reads, adps, al, 2, chunk - 2)
+    reads[3, chunk - 30:chunk + 30] = 4
+    cpu = to_torch(reads, rl, adps, al)
+    dev = [t.to(card) for t in cpu]
+    kernels.reset_launches()
+    got = kernels.forward_tiled(*dev, *SCHEME)
+    assert kernels.TILED_CALLS == {(8, L, A, nch): 1}
+    assert kernels.LAUNCHES['forward_tiled'] == 1
+    assert tiled_diffs([g.cpu() for g in got],
+                       kernels.forward_tiled(*cpu, *SCHEME), cpu) == []
+
+
+def test_card_warps_from_the_occupancy_query(card):
+    """The trace-bit kernel's resident warps, from the runtime: whole SMs'
+    worth, fewer for wider instantiations (more trace bytes a warp), and
+    on an H100 the 24, 13 and 6 warps per SM that its 228 KB of shared
+    memory per SM allow."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    got = {amax: kernels.card_warps(amax, card.index) for amax in H100_WARPS}
+    assert all(n > 0 and n % sms == 0 for n in got.values()), got
+    assert got[32] >= got[64] >= got[128], got
+    if 'H100' in torch.cuda.get_device_name(card):
+        assert got == H100_WARPS
+
+
+@pytest.mark.parametrize('C', [256, 512])
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_forced_chunks_match_plain(card, A, C):
+    """The built kernel with chunks of 256 and 512 columns and the plan's
+    warm-up (tests/test_torch_csrc_host.py's lanes, on the card, where
+    warps run in no order)."""
+    cpu = split_batch(A, C)
+    dev = [t.to(card) for t in cpu]
+    got = call_tiled(kernels._lib('forward_tiled'), dev, SCHEME, C,
+                     plan_warm(A, SCHEME),
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert tiled_diffs([g.cpu() for g in got],
+                       kernels.forward_tiled_plain(*cpu, *SCHEME), cpu) == []
 
 
 def test_forward_tiled_raises_past_128_rows_on_the_card(card):
