@@ -6,17 +6,25 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 
 It builds the three DP kernels from porechop_tpu_torch/csrc/, holds each
 against its plain PyTorch version on the card at the shapes the trimming
-path gives it (and times both), then runs the default trimming path end to
-end through porechop_tpu_torch.cli.main at -v 0 and at -v 1 on two inputs:
-8,192 synthetic 10 kb reads, and the long-read set (2,560 reads of 8-200
-kb, read N50 40 kb).  Each run must write the output FASTQ and the stdout
-transcript of the JAX package (by SHA-256) and launch every kernel, and
-the long-read runs must cut at least one trace-bit launch into column
-chunks (kernels.split_plan).  The
-last line of stdout is the result: {"ok": true, "device":
-{...}}; before it, one {"kernels": [...]} line.  Any failure raises and
-exits non-zero without a result line.  It writes only under build/
-(kernels and the work directories build/smoke/ and build/smoke/long/).
+path gives it (and times both), then runs the trimmer end to end through
+porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
+- 8,192 synthetic 10 kb reads, in memory and streamed (--stream 2048);
+- the long-read set (2,560 reads of 8-200 kb, read N50 40 kb), in memory
+  and streamed (--stream 640);
+- 8,192 natively barcoded 10 kb reads (synth_barcoded), binned with -b,
+  in memory and streamed (--stream 2048).
+Each run must write the output FASTQ (or bins) and the stdout transcript
+of the JAX package (by SHA-256) and launch every kernel, and the long-read
+runs must cut at least one trace-bit launch into column chunks
+(kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
+torch.distributed ranks sharing the card (two `python -m
+porechop_tpu_torch` processes, in memory and streamed), whose merged
+output and rank 0's transcript must be the single-process run's.  Every
+run prints its wall, reads/s and peak device memory.  The last line of
+stdout is the result: {"ok": true, "device": {...}}; before it, one
+{"kernels": [...]} line.  Any failure raises and exits non-zero without a
+result line.  It writes only under build/ (kernels and the work
+directories under build/smoke/).
 """
 
 import contextlib
@@ -24,6 +32,8 @@ import hashlib
 import io
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -61,6 +71,45 @@ LONG_OUT_SHA = {
 LONG_STDOUT_SHA = {
     0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
     1: 'a8a742bcc6ad75e46a8c31551a8425707fb3b17f23215660c373fb3572f7dd70'}
+# The barcoded input, reads.fastq = write_fastq(synth_barcoded(8192, 10000,
+# seed=0)), and the JAX package's bins and transcript on it, recorded the
+# same way:
+#   PORECHOP_TPU_FORCE_HOST=1 python -m porechop_tpu -i reads.fastq \
+#       -b bins -v 1 -t 4 > stdout_v1.txt
+# The -v 0 runs are held against these -v 1 bins (with an empty
+# transcript): the JAX package's -b -v 0 prefilters detection and may zero
+# the side scores that choose the barcode orientation, which the port
+# does not copy.
+BARCODED_READS_SHA = (
+    'f20d1a6824c3afe5d9bbea4aa99706311d85e640aaaf4db97e9426c2819aec3b')
+BARCODED_BIN_SHA = {
+    'BC01.fastq': 'bfc661a9bbb87c5dfa2ac10ee71a6afc65d735d186d531d71800b7a788dcf3b5',
+    'BC02.fastq': '1258761cbb29ebfa640ea15c2fa2ed03a8069d1aac73602ea26a377a17d68df6',
+    'BC03.fastq': 'fc9c1dd5e9e687634220100752665cfdc438b8e65bdf7ddca2538614cf8bdc22',
+    'BC04.fastq': '676bab998dbe8bf1abaa1ac24d675570845f4e1afaa009c15a50ef413c7c105e',
+    'BC05.fastq': 'aab75823943f36aa153c1d2cb9c79b618d058db9aa829fa7b4a7ed88213fafb3',
+    'BC06.fastq': '0dacb3ce99ab33c9a368abeb05f995f56112417770f66e9e45c0b84543b0d904',
+    'BC07.fastq': '000b2588d553db29f89e7b94d457d996c5ba5d04d3ada1f1cf8a665559f18137',
+    'BC08.fastq': '3531c4412e6185e6af18bbc30953845d9572e60595b779700063862765d362c7',
+    'BC09.fastq': 'b3f30a65dab8f088dbdfc9c653876507a53cbb6f498e86b31e935c29bd3cbe42',
+    'BC10.fastq': '577f99323c9250d6f614303515ddf21aa680491b7393c3e03f082ca1803179cc',
+    'BC11.fastq': 'ebcbc2fa2744fe6018fc32983f8c1cbce6362d46a27d5e517d209179c313adb8',
+    'BC12.fastq': 'b12c5e143a077a03346a3bb56fef70c7bed006cdcba0b539de1e6a187426f73b',
+    'none.fastq': '9238e7bbd06c6909851b4693e12f10149548356fb8dbad3034024ee81ecaae80'}
+BARCODED_STDOUT_SHA = {
+    0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+    1: 'b9ef99e430ea8bf31fe2fcdaa9a497d6f7f060ae8cf3df7a0d9fdb0443add84c'}
+
+# Each rank of the two-rank runs: `python -m porechop_tpu_torch`, then its
+# peak device memory and kernel launches as one JSON line on stderr.
+RANK_CODE = """\
+import json, runpy, sys, torch
+runpy.run_module('porechop_tpu_torch', run_name='__main__', alter_sys=True)
+from porechop_tpu_torch.ops import kernels
+print(json.dumps({'peak_bytes': torch.cuda.max_memory_allocated(),
+                  'launches': kernels.LAUNCHES}), file=sys.stderr)
+"""
+RANK_TIMEOUT = 300
 
 SCHEME = (3, -6, -5, -2)
 # H100 SXM: 3.35 TB/s of HBM3; 64 INT32 lanes per SM per clock x 132 SMs x
@@ -82,7 +131,10 @@ KERNELS = {
         shapes=[('middle round 0', 1024, 10240, 32),
                 ('detection prefilter', 16384, 150, 24),
                 ('detection prefilter', 16384, 150, 48),
-                ('middle round 0, real width', 16384, 10240, 32)]),
+                ('middle round 0, real width', 16384, 10240, 32),
+                ('detection prefilter, as the runs launch it', 1048576,
+                 150, 24),
+                ('barcoded middle round 0', 4096, 10240, 96)]),
     'forward_stats': dict(
         source='porechop_tpu_torch/csrc/dp_stats.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:721',
@@ -90,7 +142,8 @@ KERNELS = {
         shapes=[('detection group max', 16384, 150, 24),
                 ('detection group max', 16384, 150, 48),
                 ('middle survivors', 1024, 10240, 32),
-                ('middle survivors, adapter rung 48', 1024, 10240, 64)]),
+                ('middle survivors, adapter rung 48', 1024, 10240, 64),
+                ('barcoded middle survivors', 512, 10240, 96)]),
     'forward_tiled': dict(
         source='porechop_tpu_torch/csrc/dp_tiled.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:376',
@@ -108,6 +161,8 @@ KERNELS = {
                 ('long-read, 32 lanes at rung 131,072', 32, 131072, 32),
                 ('long-read, 128 lanes at rung 131,072', 128, 131072, 32),
                 ('10 kb, 512 lanes, adapter rung 48', 512, 10240, 48),
+                ('barcoded middle, 512 lanes, adapter rung 96', 512, 10240,
+                 96),
                 ('adapter rung 128, coverage only', 32, 131072, 128)]),
 }
 
@@ -206,67 +261,192 @@ def check_kernels(kernels):
     return results
 
 
-def run_main_path(cli, kernels, what, work, reads, reads_sha, out_sha,
-                  stdout_sha, split=False):
-    """One input through the default trimming run, on the card, at -v 0
-    and -v 1; with split, each run must cut at least one trace-bit launch
-    into column chunks.  Returns {verbosity: launches of that run}."""
+def make_input(what, work, reads, reads_sha):
+    """Writes reads() to work/reads.fastq and checks its digest; returns
+    (reads, bases)."""
     from porechop_tpu_torch.utils.synth import write_fastq
     work.mkdir(parents=True, exist_ok=True)
-    os.chdir(work)
     t0 = time.perf_counter()
     reads = reads()
-    write_fastq('reads.fastq', reads)
-    with open('reads.fastq', 'rb') as f:
+    write_fastq(str(work / 'reads.fastq'), reads)
+    with open(work / 'reads.fastq', 'rb') as f:
         if hashlib.sha256(f.read()).hexdigest() != reads_sha:
             raise AssertionError('synthetic %s input differs from the one '
                                  'the reference digests were recorded on'
                                  % what)
-    n_reads, n_bases = len(reads), sum(len(r[1]) for r in reads)
+    size = len(reads), sum(len(r[1]) for r in reads)
     print('synthesised the %s input, %d reads, %d bp, in %.1f s'
-          % (what, n_reads, n_bases, time.perf_counter() - t0), flush=True)
-    launches = {}
-    for v in (0, 1):
-        out = 'out_v%d.fastq' % v
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        buf = io.StringIO()
+          % (what, size[0], size[1], time.perf_counter() - t0), flush=True)
+    return size
+
+
+def _fresh_dir(work, name):
+    """work/name, emptied, holding a link to work/reads.fastq."""
+    d = work / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    os.symlink(work / 'reads.fastq', d / 'reads.fastq')
+    return d
+
+
+def _sha(path):
+    with open(path, 'rb') as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def run_cli(cli, kernels, label, d, argv, size):
+    """One in-process run of the trimmer in directory d, on the card.
+    Returns (its launches, its stdout with d's path as <WORKDIR>)."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    os.chdir(d)
+    try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            cli.main(['-i', 'reads.fastq', '-o', out, '-v', str(v),
-                      '-t', '4'])
+            cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[v] = dict(kernels.LAUNCHES)
-        tiled = sorted(kernels.TILED_CALLS.items())
-        with open(out, 'rb') as f:
-            got_out = hashlib.sha256(f.read()).hexdigest()
-        text = buf.getvalue().replace(str(work), '<WORKDIR>')
-        got_stdout = hashlib.sha256(text.encode()).hexdigest()
-        print('%s run -v %d: %.2f s wall, %.1f reads/s, %.4g bases/s, peak '
-              'device memory %.1f MiB, launches %s' % (
-                  what, v, wall, n_reads / wall, n_bases / wall,
-                  torch.cuda.max_memory_allocated() / 2 ** 20,
-                  launches[v]), flush=True)
-        print('  forward_tiled launches by (lanes, L, A, chunks): %s'
-              % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
+    finally:
+        os.chdir(ROOT)
+    launches = dict(kernels.LAUNCHES)
+    tiled = sorted(kernels.TILED_CALLS.items())
+    print('%s: %.2f s wall, %.1f reads/s, %.4g bases/s, peak device memory '
+          '%.1f MiB, launches %s' % (
+              label, wall, size[0] / wall, size[1] / wall,
+              torch.cuda.max_memory_allocated() / 2 ** 20, launches),
+          flush=True)
+    print('  forward_tiled launches by (lanes, L, A, chunks): %s'
+          % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
+    idle = [k for k in KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError('%s never launched %s' % (label, idle))
+    return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
+
+
+def _check_text(label, d, text, want_sha):
+    got = hashlib.sha256(text.encode()).hexdigest()
+    if got != want_sha:
+        (d / 'stdout.txt').write_text(text)
+        raise AssertionError('%s stdout differs from the JAX package '
+                             '(sha256 %s)' % (label, got))
+
+
+def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
+                  stream=None, split=False):
+    """One input (work/reads.fastq) through the trimming run to -o, on the
+    card, at -v 0 and -v 1, in memory or with --stream; with split, each
+    run must cut at least one trace-bit launch into column chunks.
+    Returns {run label: launches of that run}."""
+    mode = '' if stream is None else ' --stream %d' % stream
+    launches = {}
+    for v in (0, 1):
+        label = '%s%s -v %d' % (what, mode, v)
+        d = _fresh_dir(work, ('mem' if stream is None else 'stream')
+                       + '_v%d' % v)
+        out = 'out_v%d.fastq' % v
+        argv = ['-i', 'reads.fastq', '-o', out, '-v', str(v), '-t', '4']
+        if stream is not None:
+            argv += ['--stream', str(stream)]
+        launches[label], tiled, text = run_cli(cli, kernels, label, d, argv,
+                                               size)
+        got_out = _sha(d / out)
         if got_out != out_sha[v]:
-            raise AssertionError('%s -v %d output FASTQ differs from the JAX '
-                                 'package (sha256 %s)' % (what, v, got_out))
-        if got_stdout != stdout_sha[v]:
-            (work / ('stdout_v%d.txt' % v)).write_text(text)
-            raise AssertionError('%s -v %d stdout differs from the JAX '
-                                 'package (sha256 %s)'
-                                 % (what, v, got_stdout))
-        idle = [k for k in KERNELS if launches[v][k] == 0]
-        if idle:
-            raise AssertionError('%s -v %d never launched %s'
-                                 % (what, v, idle))
+            raise AssertionError('%s output FASTQ differs from the JAX '
+                                 'package (sha256 %s)' % (label, got_out))
+        _check_text(label, d, text, stdout_sha[v])
         if split and not any(k[3] > 1 for k, _ in tiled):
-            raise AssertionError('%s -v %d never split a trace-bit launch'
-                                 % (what, v))
-    os.chdir(ROOT)
+            raise AssertionError('%s never split a trace-bit launch' % label)
     return launches
+
+
+def run_barcoded(cli, kernels, work, size, stream=None):
+    """The barcoded input binned with -b at -v 0 and -v 1, in memory or
+    with --stream; every run's bins against the JAX package's -v 1 bins."""
+    mode = '' if stream is None else ' --stream %d' % stream
+    launches = {}
+    for v in (0, 1):
+        label = 'barcoded -b%s -v %d' % (mode, v)
+        d = _fresh_dir(work, ('mem' if stream is None else 'stream')
+                       + '_v%d' % v)
+        argv = ['-i', 'reads.fastq', '-b', 'bins', '-v', str(v), '-t', '4']
+        if stream is not None:
+            argv += ['--stream', str(stream)]
+        launches[label], _, text = run_cli(cli, kernels, label, d, argv,
+                                           size)
+        got = {f: _sha(d / 'bins' / f) for f in sorted(os.listdir(d /
+                                                                  'bins'))}
+        if got != BARCODED_BIN_SHA:
+            raise AssertionError('%s bins differ from the JAX package: %s'
+                                 % (label, {f: h for f, h in got.items()
+                                            if BARCODED_BIN_SHA.get(f) != h}))
+        _check_text(label, d, text, BARCODED_STDOUT_SHA[v])
+    return launches
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_two_ranks(work, size, stream=None):
+    """The input at -v 1 as two torch.distributed ranks on the one card:
+    the merged output and rank 0's transcript must be the single-process
+    run's.  Returns the launches of both ranks together."""
+    mode = '' if stream is None else ' --stream %d' % stream
+    label = '10 kb two ranks%s -v 1' % mode
+    d = _fresh_dir(work, 'ranks' + ('_mem' if stream is None else '_stream'))
+    argv = ['-i', 'reads.fastq', '-o', 'out_v1.fastq', '-v', '1', '-t', '4']
+    if stream is not None:
+        argv += ['--stream', str(stream)]
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=str(ROOT),
+                   PORECHOP_TPU_COORDINATOR='127.0.0.1:%d' % port,
+                   PORECHOP_TPU_NUM_PROCS='2', PORECHOP_TPU_PROC_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', RANK_CODE] + argv, cwd=d, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError('%s: rank %d exited %d:\n%s' % (
+                label, r, p.returncode, err.decode()[-3000:]))
+    stats = [json.loads([ln for ln in err.decode().splitlines()
+                         if ln.startswith('{"peak_bytes"')][-1])
+             for _, err in outs]
+    launches = {k: sum(s_['launches'][k] for s_ in stats) for k in KERNELS}
+    print('%s: %.2f s wall (two processes, start-up included), %.1f reads/s, '
+          'peak device memory by rank %s MiB, launches %s' % (
+              label, wall, size[0] / wall,
+              ['%.1f' % (s_['peak_bytes'] / 2 ** 20) for s_ in stats],
+              [s_['launches'] for s_ in stats]), flush=True)
+    for r, s_ in enumerate(stats):
+        idle = [k for k in KERNELS if s_['launches'][k] == 0]
+        if idle:
+            raise AssertionError('%s: rank %d never launched %s'
+                                 % (label, r, idle))
+    got_out = _sha(d / 'out_v1.fastq')
+    if got_out != OUT_SHA[1]:
+        raise AssertionError('%s merged output differs from the JAX '
+                             'package (sha256 %s)' % (label, got_out))
+    _check_text(label, d, outs[0][0].decode().replace(str(d), '<WORKDIR>'),
+                STDOUT_SHA[1])
+    if outs[1][0]:
+        raise AssertionError('%s: rank 1 wrote to stdout' % label)
+    return {label: launches}
 
 
 def main():
@@ -298,23 +478,38 @@ def main():
           % {a: kernels.card_warps(a) for a in (32, 64, 128)}, flush=True)
 
     from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
-                                                 synth_mixed, synth_reads)
+                                                 synth_barcoded, synth_mixed,
+                                                 synth_reads)
     timings = check_kernels(kernels)
-    runs = {'10 kb': run_main_path(
-        cli, kernels, '10 kb', WORK,
-        lambda: synth_reads(8192, 10000, seed=0), READS_SHA, OUT_SHA,
-        STDOUT_SHA)}
-    runs['long-read'] = run_main_path(
-        cli, kernels, 'long-read', WORK / 'long',
-        lambda: synth_mixed(LONG_READ_PARTS), LONG_READS_SHA, LONG_OUT_SHA,
-        LONG_STDOUT_SHA, split=True)
+    runs = {}
+    work = WORK
+    size = make_input('10 kb', work,
+                      lambda: synth_reads(8192, 10000, seed=0), READS_SHA)
+    for stream in (None, 2048):
+        runs.update(run_main_path(cli, kernels, '10 kb', work, size, OUT_SHA,
+                                  STDOUT_SHA, stream=stream))
+    long_work = WORK / 'long'
+    long_size = make_input('long-read', long_work,
+                           lambda: synth_mixed(LONG_READ_PARTS),
+                           LONG_READS_SHA)
+    for stream in (None, 640):
+        runs.update(run_main_path(cli, kernels, 'long-read', long_work,
+                                  long_size, LONG_OUT_SHA, LONG_STDOUT_SHA,
+                                  stream=stream, split=True))
+    bc_work = WORK / 'barcoded'
+    bc_size = make_input('barcoded', bc_work,
+                         lambda: synth_barcoded(8192, 10000, seed=0),
+                         BARCODED_READS_SHA)
+    for stream in (None, 2048):
+        runs.update(run_barcoded(cli, kernels, bc_work, bc_size,
+                                 stream=stream))
+    for stream in (None, 2048):
+        runs.update(run_two_ranks(work, size, stream=stream))
 
     line = []
     for name, spec_ in KERNELS.items():
         primary = timings[name][0]
-        by_run = {'%s -v %d' % (what, v): n[name]
-                  for what, launches in runs.items()
-                  for v, n in launches.items()}
+        by_run = {label: n[name] for label, n in runs.items()}
         line.append(dict(
             name=name, route='cuda', source=spec_['source'],
             replaces=spec_['replaces'],

@@ -7,14 +7,21 @@ them runs on batched device launches instead of a host thread pool.  The
 (pigz) parallelism, while alignment parallelism comes from batching.
 
 The alignments run on the CUDA card unless the caller asks for another
-device: main(argv, device=...) or the hidden --device flag.
+device: main(argv, device=...) or the hidden --device flag.  A
+multi-process run (parallel/multihost.py) gives each rank the card
+cuda:(rank % cards) unless a device is named.
 """
 
 import argparse
 import multiprocessing
+import os
 import sys
 
+import torch
+
 from .ops.dispatch import resolve_device
+from .parallel import multihost
+from .pipeline import stream as stream_mod
 from .pipeline.output import output_reads
 from .pipeline.phases import (add_full_barcode_adapter_sets,
                               choose_barcoding_kit,
@@ -33,25 +40,63 @@ def main(argv=None, device=None):
     """Runs the trimmer.  device: where the alignments run (a torch device
     or its name); default the --device flag, else the CUDA card."""
     args = get_arguments(argv)
-    _run_pipeline(args, resolve_device(device if device is not None
-                                       else args.device))
+    _run_pipeline(args, device if device is not None else args.device)
 
 
-def _run_pipeline(args, device):
-    reads, check_reads, read_type = load_reads(args.input, args.verbosity,
-                                               args.print_dest,
-                                               args.check_reads)
+def _run_pipeline(args, device_name):
+    device = resolve_device(device_name)     # raises without a card
+    # The process group must exist before the streaming branch: with both
+    # --stream and a coordinator set, each rank streams its own record
+    # range.
+    mh = multihost.maybe_init()
+    if mh:
+        if device_name is None:
+            device = multihost.rank_device()
+        if multihost.rank() > 0:
+            args.print_dest = open(os.devnull, 'w')
+    if device.type == 'cuda' and device.index is not None:
+        torch.cuda.set_device(device)        # the kernels launch on it
+    chunk_size = stream_mod.stream_chunk_size(args)
+    if chunk_size:
+        if mh:
+            return stream_mod.run_streaming_multihost(args, chunk_size,
+                                                      device=device)
+        return _run_streaming_pipeline(args, chunk_size, device)
+
+    # Multi-process: each rank counts records cheaply, then parses only its
+    # contiguous block; the detection stats merge globally.  Rank 0
+    # re-emits the full reference transcript: at -v 1 from global
+    # counters, at -v >= 2 with the per-read dumps gathered from all ranks
+    # in read order.
+    stats_merge = None
+    mh_text = False
+    if mh:
+        stats_merge = multihost.merge_detection_stats
+        mh_text = args.verbosity >= 1
+        reads, check_reads, read_type, n_total, n_check = \
+            multihost.load_reads_block(args.input, args.verbosity,
+                                       args.print_dest, args.check_reads)
+    else:
+        reads, check_reads, read_type = load_reads(args.input,
+                                                   args.verbosity,
+                                                   args.print_dest,
+                                                   args.check_reads)
+    phase_verbosity = 0 if mh_text else args.verbosity
+
     # The prefilter may zero a sub-threshold side's score; barcode runs sum
     # both sides' scores (choose_barcoding_kit), so they need exact ones.
     exact_scores = args.verbosity > 0 or args.barcode_dir is not None
-    matching_sets = find_matching_adapter_sets(check_reads, args.verbosity,
+    matching_sets = find_matching_adapter_sets(check_reads, phase_verbosity,
                                                args.end_size,
                                                args.scoring_scheme_vals,
                                                args.print_dest,
                                                args.adapter_threshold,
                                                args.threads,
                                                exact_scores=exact_scores,
-                                               device=device)
+                                               device=device,
+                                               stats_merge=stats_merge)
+    if mh_text:
+        multihost.print_detection_block(n_check, args.print_dest)
     matching_sets = fix_up_1d2_sets(matching_sets)
 
     if args.barcode_dir:
@@ -69,34 +114,129 @@ def _run_pipeline(args, device):
 
     if matching_sets:
         check_barcodes = (args.barcode_dir is not None)
-        find_adapters_at_read_ends(
-            reads, matching_sets, args.verbosity,
+        dumps2 = find_adapters_at_read_ends(
+            reads, matching_sets, phase_verbosity,
             args.end_size, args.extra_end_trim, args.end_threshold,
             args.scoring_scheme_vals, args.print_dest, args.min_trim_size,
             args.threads, check_barcodes, args.barcode_threshold,
             args.barcode_diff, args.require_two_barcodes,
-            forward_or_reverse_barcodes, device=device)
-        display_read_end_trimming_summary(reads, args.verbosity,
-                                          args.print_dest)
+            forward_or_reverse_barcodes, device=device,
+            collect_dumps=args.verbosity if mh_text else 0)
+        if mh_text:
+            _print_end_trim_text(args, matching_sets, reads, dumps2,
+                                 n_total)
+        else:
+            display_read_end_trimming_summary(reads, args.verbosity,
+                                              args.print_dest)
         if not args.no_split:
-            find_adapters_in_read_middles(
-                reads, matching_sets, args.verbosity,
+            dumps3 = find_adapters_in_read_middles(
+                reads, matching_sets, phase_verbosity,
                 args.middle_threshold, args.extra_middle_trim_good_side,
                 args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
                 args.print_dest, args.threads, args.discard_middle,
-                device=device)
-            display_read_middle_trimming_summary(reads, args.discard_middle,
-                                                 args.verbosity,
-                                                 args.print_dest)
+                device=device,
+                collect_dumps=args.verbosity if mh_text else 0)
+            if mh_text:
+                _print_middle_text(args, reads, dumps3, n_total)
+            else:
+                display_read_middle_trimming_summary(reads,
+                                                     args.discard_middle,
+                                                     args.verbosity,
+                                                     args.print_dest)
     elif args.verbosity > 0:
         print('No adapters found - output reads are unchanged from input reads\n',
               file=args.print_dest)
 
-    output_reads(reads, args.format, args.output, read_type,
-                 args.verbosity, args.discard_middle,
-                 args.min_split_read_size, args.print_dest,
-                 args.barcode_dir, args.input, args.untrimmed,
-                 args.threads, args.discard_unassigned)
+    if mh:
+        multihost.output_and_merge(reads, args, read_type, output_reads)
+    else:
+        output_reads(reads, args.format, args.output, read_type,
+                     args.verbosity, args.discard_middle,
+                     args.min_split_read_size, args.print_dest,
+                     args.barcode_dir, args.input, args.untrimmed,
+                     args.threads, args.discard_unassigned)
+
+
+def _print_end_trim_text(args, matching_sets, reads, dumps, n_total):
+    """A multi-process run's phase-2 transcript on rank 0, from global
+    counters (-v 1) or with every rank's dump lines in read order (-v 2+)."""
+    from .pipeline.phases import end_trim_summary_counts, print_end_trim_header
+    tot = multihost.sum_across_ranks([
+        sum(1 if x.start_trim_amount else 0 for x in reads),
+        sum(x.start_trim_amount for x in reads),
+        sum(1 if x.end_trim_amount else 0 for x in reads),
+        sum(x.end_trim_amount for x in reads)])
+    if args.verbosity == 1:
+        multihost.print_end_trim_block(matching_sets, n_total, int(tot[0]),
+                                       int(tot[1]), int(tot[2]), int(tot[3]),
+                                       args.print_dest)
+        return
+    print_end_trim_header(matching_sets, args.print_dest)
+    # Streams into print_dest on rank 0 with bounded memory (chunked
+    # allgather rounds; see gather_text_blocks).
+    multihost.gather_text_blocks(''.join(line + '\n' for line in dumps),
+                                 sink=args.print_dest)
+    print('', file=args.print_dest)
+    end_trim_summary_counts(n_total, int(tot[0]), int(tot[1]), int(tot[2]),
+                            int(tot[3]), args.print_dest)
+
+
+def _print_middle_text(args, reads, dumps, n_total):
+    """The phase-3 counterpart of _print_end_trim_text."""
+    from .pipeline.phases import middle_summary_counts
+    from .utils.text import bold_underline
+    mid = multihost.sum_across_ranks([
+        sum(1 if x.middle_adapter_ranges else 0 for x in reads)])
+    if args.verbosity == 1:
+        multihost.print_middle_block(n_total, int(mid[0]),
+                                     args.discard_middle, args.threads,
+                                     args.print_dest)
+        return
+    verb = 'Discarding' if args.discard_middle else 'Splitting'
+    print(bold_underline(verb + ' reads containing middle adapters'),
+          file=args.print_dest)
+    multihost.gather_text_blocks(''.join(line + '\n' for line in dumps),
+                                 sink=args.print_dest)
+    args.print_dest.flush()
+    middle_summary_counts(int(mid[0]), n_total, args.discard_middle,
+                          args.print_dest)
+
+
+def _run_streaming_pipeline(args, chunk_size, device):
+    """Bounded-memory path (--stream <chunk> or PORECHOP_TPU_STREAM, -v 0/1):
+    detection on the --check_reads sample (file head, or per-file heads for
+    Albacore-style directory input), then chunked phases 2+3 + output.
+    Byte-identical to the default path (v1 totals come from a cheap
+    record-counting pre-pass)."""
+    read_type = stream_mod.input_read_type(args.input)
+    total_reads = None
+    if args.verbosity > 0:
+        total_reads = stream_mod.print_load_text(args.input, args.print_dest)
+
+    check_reads, _ = stream_mod.collect_check_reads(args.input,
+                                                    args.check_reads)
+    # The same exact-score rule as the in-memory path.
+    matching_sets = find_matching_adapter_sets(
+        check_reads, args.verbosity, args.end_size, args.scoring_scheme_vals,
+        args.print_dest, args.adapter_threshold, args.threads,
+        exact_scores=args.verbosity > 0 or args.barcode_dir is not None,
+        device=device)
+    matching_sets = fix_up_1d2_sets(matching_sets)
+    if args.barcode_dir:
+        forward_or_reverse_barcodes = choose_barcoding_kit(matching_sets,
+                                                           args.verbosity,
+                                                           args.print_dest)
+    else:
+        forward_or_reverse_barcodes = None
+    display_adapter_set_results(matching_sets, args.verbosity,
+                                args.print_dest)
+    matching_sets = add_full_barcode_adapter_sets(matching_sets)
+    if args.verbosity > 0:
+        print('\n', file=args.print_dest)
+    stream_mod.run_streaming(args, matching_sets,
+                             forward_or_reverse_barcodes, read_type,
+                             chunk_size, total_reads=total_reads,
+                             device=device)
 
 
 def get_arguments(argv=None):
@@ -206,6 +346,10 @@ def get_arguments(argv=None):
     # Hidden (help-suppressed, to keep --help byte-parity with the
     # reference): the torch device the alignments run on (default: cuda).
     main_group.add_argument('--device', default=None, help=argparse.SUPPRESS)
+    # Hidden: bounded-memory streaming with this many reads per chunk.
+    # Equivalent to PORECHOP_TPU_STREAM=<n>.  See pipeline/stream.py.
+    main_group.add_argument('--stream', type=int, default=None,
+                            help=argparse.SUPPRESS)
 
     help_args = parser.add_argument_group('Help')
     help_args.add_argument('-h', '--help', action='help', default=argparse.SUPPRESS,

@@ -100,8 +100,13 @@ def get_albacore_barcode_from_path(albacore_path):
 def find_matching_adapter_sets(check_reads, verbosity, end_size,
                                scoring_scheme_vals, print_dest,
                                adapter_threshold, threads, exact_scores=True,
-                               device=None):
-    """exact_scores: when False (the caller will never display per-set
+                               device=None, stats_merge=None):
+    """stats_merge: optional (gm, gl) -> (gm, gl) hook that merges the
+    per-(set, side) best (matches, full_len) stats across processes, the
+    multi-process collective (parallel/multihost.py).  Every process must
+    call it, with the same adapter database so the entry order matches.
+
+    exact_scores: when False (the caller will never display per-set
     scores and never weighs them against each other), sub-threshold sets
     may report 0.0 instead of their true best identity: a score-only
     prefilter pass rejects whole (set, side) groups via the provable bound
@@ -200,6 +205,8 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
                                 device=device).run_group_max(
                                     gids, E, progress=prog)
                 gm, gl = res['matches'], res['full_len']
+        if stats_merge is not None:
+            gm, gl = stats_merge(gm, gl)
         best = seqan_pct_vec(gm, np.maximum(gl, 1))
         for e, (si, side, ai) in enumerate(entries):
             aset = search_adapters[si]
@@ -303,7 +310,12 @@ def find_adapters_at_read_ends(reads, matching_sets, verbosity, end_size,
                                scoring_scheme_vals, print_dest, min_trim_size,
                                threads, check_barcodes, barcode_threshold,
                                barcode_diff, require_two_barcodes,
-                               forward_or_reverse_barcodes, device=None):
+                               forward_or_reverse_barcodes, device=None,
+                               collect_dumps=0):
+    """collect_dumps > 0 (with verbosity 0): build and RETURN the per-read
+    v2/v3 dump lines at that level without printing anything; the
+    multi-process runtime gathers each rank's lines and re-emits them in
+    global read order (parallel/multihost.py)."""
     if verbosity > 0:
         print_end_trim_header(matching_sets, print_dest)
 
@@ -379,10 +391,11 @@ def find_adapters_at_read_ends(reads, matching_sets, verbosity, end_size,
         if check_barcodes:
             read.determine_barcode(barcode_threshold, barcode_diff,
                                    require_two_barcodes)
-        if verbosity == 2:
+        dump_level = verbosity if verbosity > 1 else collect_dumps
+        if dump_level == 2:
             per_read_lines.append(read.formatted_start_and_end_seq(
                 end_size, extra_trim_size, check_barcodes))
-        elif verbosity > 2:
+        elif dump_level > 2:
             per_read_lines.append(read.full_start_end_output(
                 end_size, extra_trim_size, check_barcodes))
 
@@ -449,7 +462,8 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
                                   middle_threshold, extra_trim_good_side,
                                   extra_trim_bad_side, scoring_scheme_vals,
                                   print_dest, threads, discard_middle,
-                                  device=None):
+                                  device=None, collect_dumps=0):
+    """collect_dumps: see find_adapters_at_read_ends."""
     if verbosity > 0:
         verb = 'Discarding' if discard_middle else 'Splitting'
         print(bold_underline(verb + ' reads containing middle adapters'),
@@ -628,11 +642,12 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
     if verbosity == 1:
         prog.finish()
         print('', flush=True, file=print_dest)
+    dump_level = verbosity if verbosity > 1 else collect_dumps
     dump_lines = []
-    if verbosity > 1:
+    if dump_level > 1:
         for read in reads:
             if read.middle_adapter_ranges:
-                dump_lines.append(read.middle_adapter_results(verbosity))
+                dump_lines.append(read.middle_adapter_results(dump_level))
     if verbosity > 1:
         for line in dump_lines:
             print(line, file=print_dest, flush=True)

@@ -81,6 +81,42 @@ def synth_mixed(parts, **kwargs):
             for i, k in enumerate(order)]
 
 
+def synth_barcoded(n_reads: int, read_len: int, seed: int = 0,
+                   barcodes=range(1, 13), no_barcode_rate: float = 0.1,
+                   chimera_rate: float = 0.05, error_rate: float = 0.1):
+    """A natively barcoded run as (name, seq, quals) tuples: each read
+    carries the full native-barcode start and end sequences
+    (adapters.make_full_native_barcode_adapter) of a barcode drawn from
+    `barcodes`, mutated at error_rate; no_barcode_rate of the reads carry
+    the plain SQK-NSK007 adapters instead (the 'none' bin), and
+    chimera_rate of them hold their own end + start sequences in the
+    middle."""
+    from ..adapters import make_full_native_barcode_adapter
+    full = [make_full_native_barcode_adapter(b) for b in barcodes]
+    rng = np.random.default_rng(seed)
+    bodies = BASES[rng.integers(0, 4, (n_reads, read_len))]
+    quals_block = (33 + rng.integers(10, 40, (n_reads, read_len + 400))
+                   ).astype(np.uint8)
+    reads = []
+    for k in range(n_reads):
+        if rng.random() < no_barcode_rate:
+            start, end = NSK007_START, NSK007_END
+        else:
+            a = full[rng.integers(len(full))]
+            start, end = a.start_sequence[1], a.end_sequence[1]
+        seq = (_mutate(rng, start, error_rate)
+               + bodies[k].tobytes().decode('ascii')
+               + _mutate(rng, end, error_rate))
+        if rng.random() < chimera_rate:
+            mid = len(seq) // 2
+            insert = (_mutate(rng, end, error_rate)
+                      + _mutate(rng, start, error_rate))
+            seq = seq[:mid] + insert + seq[mid:]
+        quals = quals_block[k, :len(seq)].tobytes().decode('ascii')
+        reads.append(('read_%05d' % k, seq, quals))
+    return reads
+
+
 def write_fastq(path: str, reads) -> None:
     with open(path, 'w') as f:
         for name, seq, quals in reads:

@@ -2,21 +2,26 @@
 """Where the time goes on the PyTorch/CUDA port's main path, on one NVIDIA
 GPU.  Run from the repository root:
 
-    python3 profile_torch.py          # 8,192 x 10 kb reads
-    python3 profile_torch.py --long   # the long-read set, 8-200 kb
+    python3 profile_torch.py              # 8,192 x 10 kb reads, -o
+    python3 profile_torch.py --long       # the long-read set, 8-200 kb
+    python3 profile_torch.py --barcoded   # 8,192 barcoded 10 kb reads, -b
+    python3 profile_torch.py --stream N   # any of these with --stream N
 
 For -v 0 and -v 1 it runs porechop_tpu_torch.cli.main on an input of
-chip_smoke.py (build/smoke/reads.fastq or build/smoke/long/reads.fastq,
-made if missing) three times: to warm up, to time it (wall per phase on
-the host clock, each phase ending in a device synchronise, and the peak
-device memory), and under torch.profiler (the device's busy time, the sum
-of its kernel times, the CUDA kernels by total device time, and every
-kernel of csrc/).  It
-prints one JSON line per verbosity; the idle share is 1 - busy / the
-unprofiled wall.  The full profiler tables go to build/profile/ (or
-build/profile/long/).
+chip_smoke.py (build/smoke/reads.fastq, build/smoke/long/reads.fastq or
+build/smoke/barcoded/reads.fastq, made if missing) three times: to warm
+up, to time it (wall per phase on the host clock, each phase ending in a
+device synchronise, and the peak device memory), and under torch.profiler
+(the device's busy time, the sum of its kernel times, the CUDA kernels by
+total device time, and every kernel of csrc/).  A streamed run's phases 2
+and 3 sum over its chunks; what the wall holds besides the phases
+(parsing, waiting on the reader, writing, text) is `other`.  It prints
+one JSON line per verbosity, with the launches of each kernel by shape;
+the idle share is 1 - busy / the unprofiled wall.  The full profiler
+tables go to build/profile/<input>[_stream]/.
 """
 
+import argparse
 import collections
 import contextlib
 import io
@@ -38,17 +43,27 @@ PHASES = ('load_reads', 'find_matching_adapter_sets',
 
 
 def main(argv=None):
-    long_reads = '--long' in (sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser()
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument('--long', action='store_true')
+    which.add_argument('--barcoded', action='store_true')
+    parser.add_argument('--stream', type=int, default=None)
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print('profile_torch: no CUDA device', file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from porechop_tpu_torch import cli
     from porechop_tpu_torch.ops import kernels
+    from porechop_tpu_torch.pipeline import stream
     from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
-                                                 synth_mixed, synth_reads,
-                                                 write_fastq)
-    work, out = (WORK / 'long', OUT / 'long') if long_reads else (WORK, OUT)
+                                                 synth_barcoded, synth_mixed,
+                                                 synth_reads, write_fastq)
+    what = ('long-read' if opts.long else 'barcoded' if opts.barcoded
+            else '10 kb')
+    sub = {'long-read': 'long', 'barcoded': 'barcoded', '10 kb': ''}[what]
+    work = WORK / sub
+    out = OUT / ((sub or 'short') + ('_stream' if opts.stream else ''))
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -58,8 +73,10 @@ def main(argv=None):
     out.mkdir(parents=True, exist_ok=True)
     os.chdir(work)
     if not os.path.isfile('reads.fastq'):
-        write_fastq('reads.fastq', synth_mixed(LONG_READ_PARTS) if long_reads
-                    else synth_reads(8192, 10000, seed=0))
+        write_fastq('reads.fastq', {
+            'long-read': lambda: synth_mixed(LONG_READ_PARTS),
+            'barcoded': lambda: synth_barcoded(8192, 10000, seed=0),
+            '10 kb': lambda: synth_reads(8192, 10000, seed=0)}[what]())
     with open('reads.fastq', 'rb') as f:
         n_reads = sum(1 for _ in f) // 4
 
@@ -77,10 +94,28 @@ def main(argv=None):
 
     for name in PHASES:
         setattr(cli, name, timed(name, getattr(cli, name)))
+    for name in PHASES[2:4]:                # a streamed run's chunks
+        setattr(stream, name, timed(name, getattr(stream, name)))
+
+    shapes = {'forward_score': collections.Counter(),
+              'forward_stats': collections.Counter()}
+
+    def recorded(name, fn):
+        def call(reads, read_lens, adapters, *rest):
+            if reads.is_cuda:
+                shapes[name][(*reads.shape, adapters.shape[1])] += 1
+            return fn(reads, read_lens, adapters, *rest)
+        return call
+
+    for name in shapes:
+        setattr(kernels, name, recorded(name, getattr(kernels, name)))
 
     for v in (0, 1):
-        args = ['-i', 'reads.fastq', '-o', 'profile_v%d.fastq' % v,
-                '-v', str(v), '-t', '4']
+        args = (['-b', 'profile_bins_v%d' % v] if opts.barcoded
+                else ['-o', 'profile_v%d.fastq' % v])
+        args = ['-i', 'reads.fastq', *args, '-v', str(v), '-t', '4']
+        if opts.stream:
+            args += ['--stream', str(opts.stream)]
 
         def run():
             t0 = time.perf_counter()
@@ -91,12 +126,17 @@ def main(argv=None):
 
         run()                                   # warm-up
         walls.clear()
+        for c in shapes.values():
+            c.clear()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         wall = run()                            # clean wall and phases
         phase_walls = dict(walls)
+        phase_walls['other'] = wall - sum(walls.values())
         launches = dict(kernels.LAUNCHES)
         tiled_calls = [[*k, n] for k, n in sorted(kernels.TILED_CALLS.items())]
+        shape_calls = {k: [[*s_, n] for s_, n in sorted(c.items())]
+                       for k, c in shapes.items()}
         peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -113,10 +153,12 @@ def main(argv=None):
             prof.key_averages().table(sort_by='self_device_time_total',
                                       row_limit=40))
         print(json.dumps({
-            'input': 'long-read' if long_reads else '10 kb',
+            'input': what, 'stream': opts.stream,
             'verbosity': v, 'wall_s': wall, 'reads_per_s': n_reads / wall,
             'phase_wall_s': phase_walls, 'launches': launches,
             'tiled_calls_lanes_L_A_chunks_n': tiled_calls,
+            'score_calls_lanes_L_A_n': shape_calls['forward_score'],
+            'stats_calls_lanes_L_A_n': shape_calls['forward_stats'],
             'peak_device_mib': peak_mib,
             'profiled_wall_s': prof_wall, 'device_busy_s': busy_s,
             'device_idle_share': 1 - busy_s / wall,
