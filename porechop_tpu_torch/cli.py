@@ -13,6 +13,7 @@ cuda:(rank % cards) unless a device is named.
 """
 
 import argparse
+import copy
 import multiprocessing
 import os
 import sys
@@ -28,11 +29,15 @@ from .pipeline.phases import (add_full_barcode_adapter_sets,
                               display_adapter_set_results,
                               display_read_end_trimming_summary,
                               display_read_middle_trimming_summary,
+                              end_trim_summary_counts,
                               find_adapters_at_read_ends,
                               find_adapters_in_read_middles,
                               find_matching_adapter_sets, fix_up_1d2_sets,
-                              load_reads)
-from .utils.text import TrimmerHelpFormatter
+                              load_reads, middle_summary_counts,
+                              print_detection_block, print_end_trim_block,
+                              print_end_trim_header, print_middle_block,
+                              trim_counts)
+from .utils.text import TrimmerHelpFormatter, bold_underline
 from .version import __version__
 
 
@@ -58,21 +63,14 @@ def _run_pipeline(args, device_name):
         torch.cuda.set_device(device)        # the kernels launch on it
     chunk_size = stream_mod.stream_chunk_size(args)
     if chunk_size:
-        if mh:
-            return stream_mod.run_streaming_multihost(args, chunk_size,
-                                                      device=device)
-        return _run_streaming_pipeline(args, chunk_size, device)
+        return _run_streaming_pipeline(args, chunk_size, device, mh)
 
     # Multi-process: each rank counts records cheaply, then parses only its
     # contiguous block; the detection stats merge globally.  Rank 0
     # re-emits the full reference transcript: at -v 1 from global
     # counters, at -v >= 2 with the per-read dumps gathered from all ranks
     # in read order.
-    stats_merge = None
-    mh_text = False
     if mh:
-        stats_merge = multihost.merge_detection_stats
-        mh_text = args.verbosity >= 1
         reads, check_reads, read_type, n_total, n_check = \
             multihost.load_reads_block(args.input, args.verbosity,
                                        args.print_dest, args.check_reads)
@@ -81,36 +79,10 @@ def _run_pipeline(args, device_name):
                                                    args.verbosity,
                                                    args.print_dest,
                                                    args.check_reads)
-    phase_verbosity = 0 if mh_text else args.verbosity
-
-    # The prefilter may zero a sub-threshold side's score; barcode runs sum
-    # both sides' scores (choose_barcoding_kit), so they need exact ones.
-    exact_scores = args.verbosity > 0 or args.barcode_dir is not None
-    matching_sets = find_matching_adapter_sets(check_reads, phase_verbosity,
-                                               args.end_size,
-                                               args.scoring_scheme_vals,
-                                               args.print_dest,
-                                               args.adapter_threshold,
-                                               args.threads,
-                                               exact_scores=exact_scores,
-                                               device=device,
-                                               stats_merge=stats_merge)
-    if mh_text:
-        multihost.print_detection_block(n_check, args.print_dest)
-    matching_sets = fix_up_1d2_sets(matching_sets)
-
-    if args.barcode_dir:
-        forward_or_reverse_barcodes = choose_barcoding_kit(matching_sets,
-                                                           args.verbosity,
-                                                           args.print_dest)
-    else:
-        forward_or_reverse_barcodes = None
-
-    display_adapter_set_results(matching_sets, args.verbosity, args.print_dest)
-    matching_sets = add_full_barcode_adapter_sets(matching_sets)
-
-    if args.verbosity > 0:
-        print('\n', file=args.print_dest)
+        n_check = len(check_reads)
+    matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
+        args, check_reads, n_check, device, mh)
+    phase_verbosity = 0 if mh else args.verbosity
 
     if matching_sets:
         check_barcodes = (args.barcode_dir is not None)
@@ -121,34 +93,29 @@ def _run_pipeline(args, device_name):
             args.threads, check_barcodes, args.barcode_threshold,
             args.barcode_diff, args.require_two_barcodes,
             forward_or_reverse_barcodes, device=device,
-            collect_dumps=args.verbosity if mh_text else 0)
-        if mh_text:
-            _print_end_trim_text(args, matching_sets, reads, dumps2,
-                                 n_total)
-        else:
-            display_read_end_trimming_summary(reads, args.verbosity,
-                                              args.print_dest)
+            collect_dumps=args.verbosity if mh else 0)
+        display_read_end_trimming_summary(reads, phase_verbosity,
+                                          args.print_dest)
+        dumps3 = []
         if not args.no_split:
             dumps3 = find_adapters_in_read_middles(
                 reads, matching_sets, phase_verbosity,
                 args.middle_threshold, args.extra_middle_trim_good_side,
                 args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
                 args.print_dest, args.threads, args.discard_middle,
-                device=device,
-                collect_dumps=args.verbosity if mh_text else 0)
-            if mh_text:
-                _print_middle_text(args, reads, dumps3, n_total)
-            else:
-                display_read_middle_trimming_summary(reads,
-                                                     args.discard_middle,
-                                                     args.verbosity,
-                                                     args.print_dest)
+                device=device, collect_dumps=args.verbosity if mh else 0)
+            display_read_middle_trimming_summary(reads, args.discard_middle,
+                                                 phase_verbosity,
+                                                 args.print_dest)
+        if mh:
+            _print_phase_text(args, matching_sets, trim_counts(reads),
+                              n_total, dumps2, dumps3)
     elif args.verbosity > 0:
         print('No adapters found - output reads are unchanged from input reads\n',
               file=args.print_dest)
 
     if mh:
-        multihost.output_and_merge(reads, args, read_type, output_reads)
+        multihost.output_and_merge(reads, args, read_type)
     else:
         output_reads(reads, args.format, args.output, read_type,
                      args.verbosity, args.discard_middle,
@@ -157,86 +124,127 @@ def _run_pipeline(args, device_name):
                      args.threads, args.discard_unassigned)
 
 
-def _print_end_trim_text(args, matching_sets, reads, dumps, n_total):
-    """A multi-process run's phase-2 transcript on rank 0, from global
-    counters (-v 1) or with every rank's dump lines in read order (-v 2+)."""
-    from .pipeline.phases import end_trim_summary_counts, print_end_trim_header
-    tot = multihost.sum_across_ranks([
-        sum(1 if x.start_trim_amount else 0 for x in reads),
-        sum(x.start_trim_amount for x in reads),
-        sum(1 if x.end_trim_amount else 0 for x in reads),
-        sum(x.end_trim_amount for x in reads)])
-    if args.verbosity == 1:
-        multihost.print_end_trim_block(matching_sets, n_total, int(tot[0]),
-                                       int(tot[1]), int(tot[2]), int(tot[3]),
-                                       args.print_dest)
-        return
-    print_end_trim_header(matching_sets, args.print_dest)
-    # Streams into print_dest on rank 0 with bounded memory (chunked
-    # allgather rounds; see gather_text_blocks).
-    multihost.gather_text_blocks(''.join(line + '\n' for line in dumps),
-                                 sink=args.print_dest)
-    print('', file=args.print_dest)
-    end_trim_summary_counts(n_total, int(tot[0]), int(tot[1]), int(tot[2]),
-                            int(tot[3]), args.print_dest)
-
-
-def _print_middle_text(args, reads, dumps, n_total):
-    """The phase-3 counterpart of _print_end_trim_text."""
-    from .pipeline.phases import middle_summary_counts
-    from .utils.text import bold_underline
-    mid = multihost.sum_across_ranks([
-        sum(1 if x.middle_adapter_ranges else 0 for x in reads)])
-    if args.verbosity == 1:
-        multihost.print_middle_block(n_total, int(mid[0]),
-                                     args.discard_middle, args.threads,
-                                     args.print_dest)
-        return
-    verb = 'Discarding' if args.discard_middle else 'Splitting'
-    print(bold_underline(verb + ' reads containing middle adapters'),
-          file=args.print_dest)
-    multihost.gather_text_blocks(''.join(line + '\n' for line in dumps),
-                                 sink=args.print_dest)
-    args.print_dest.flush()
-    middle_summary_counts(int(mid[0]), n_total, args.discard_middle,
-                          args.print_dest)
-
-
-def _run_streaming_pipeline(args, chunk_size, device):
-    """Bounded-memory path (--stream <chunk> or PORECHOP_TPU_STREAM, -v 0/1):
-    detection on the --check_reads sample (file head, or per-file heads for
-    Albacore-style directory input), then chunked phases 2+3 + output.
-    Byte-identical to the default path (v1 totals come from a cheap
-    record-counting pre-pass)."""
-    read_type = stream_mod.input_read_type(args.input)
-    total_reads = None
-    if args.verbosity > 0:
-        total_reads = stream_mod.print_load_text(args.input, args.print_dest)
-
-    check_reads, _ = stream_mod.collect_check_reads(args.input,
-                                                    args.check_reads)
-    # The same exact-score rule as the in-memory path.
+def _find_adapter_sets(args, check_reads, n_check, device, mh):
+    """Phase 1 and the set surgery after it; returns (matching_sets,
+    forward_or_reverse_barcodes).  In a multi-process run, check_reads is
+    this rank's slice of the n_check sample reads, the stats merge across
+    ranks and rank 0 prints the phase's text after the merge."""
+    # The prefilter may zero a sub-threshold side's score; barcode runs sum
+    # both sides' scores (choose_barcoding_kit), so they need exact ones.
     matching_sets = find_matching_adapter_sets(
-        check_reads, args.verbosity, args.end_size, args.scoring_scheme_vals,
-        args.print_dest, args.adapter_threshold, args.threads,
+        check_reads, 0 if mh else args.verbosity, args.end_size,
+        args.scoring_scheme_vals, args.print_dest, args.adapter_threshold,
+        args.threads,
         exact_scores=args.verbosity > 0 or args.barcode_dir is not None,
-        device=device)
+        device=device,
+        stats_merge=multihost.merge_detection_stats if mh else None)
+    if mh and args.verbosity > 0:
+        print_detection_block(n_check, args.print_dest)
     matching_sets = fix_up_1d2_sets(matching_sets)
+    forward_or_reverse_barcodes = None
     if args.barcode_dir:
         forward_or_reverse_barcodes = choose_barcoding_kit(matching_sets,
                                                            args.verbosity,
                                                            args.print_dest)
-    else:
-        forward_or_reverse_barcodes = None
     display_adapter_set_results(matching_sets, args.verbosity,
                                 args.print_dest)
     matching_sets = add_full_barcode_adapter_sets(matching_sets)
     if args.verbosity > 0:
         print('\n', file=args.print_dest)
-    stream_mod.run_streaming(args, matching_sets,
-                             forward_or_reverse_barcodes, read_type,
-                             chunk_size, total_reads=total_reads,
-                             device=device)
+    return matching_sets, forward_or_reverse_barcodes
+
+
+def _print_phase_text(args, matching_sets, counts, n_total, dumps2=(),
+                      dumps3=()):
+    """A multi-process run's phase-2 and phase-3 transcript on rank 0, from
+    this rank's trim_counts summed over ranks (-v 1) or with every rank's
+    dump lines in read order (-v 2+).  Every rank calls it."""
+    if args.verbosity == 0:
+        return
+    tot = [int(x) for x in multihost.sum_across_ranks(counts)]
+    dest = args.print_dest
+    if args.verbosity == 1:
+        print_end_trim_block(matching_sets, n_total, tot, dest)
+        if not args.no_split:
+            print_middle_block(n_total, tot[4], args.discard_middle,
+                               args.threads, dest)
+        return
+    # The dumps stream into print_dest on rank 0 with bounded memory
+    # (chunked allgather rounds; see gather_text_blocks).
+    print_end_trim_header(matching_sets, dest)
+    multihost.gather_text_blocks(''.join(line + '\n' for line in dumps2),
+                                 sink=dest)
+    print('', file=dest)
+    end_trim_summary_counts(n_total, *tot[:4], dest)
+    if not args.no_split:
+        verb = 'Discarding' if args.discard_middle else 'Splitting'
+        print(bold_underline(verb + ' reads containing middle adapters'),
+              file=dest)
+        multihost.gather_text_blocks(''.join(line + '\n' for line in dumps3),
+                                     sink=dest)
+        dest.flush()
+        middle_summary_counts(tot[4], n_total, args.discard_middle, dest)
+
+
+def _run_streaming_pipeline(args, chunk_size, device, mh):
+    """Bounded-memory path (--stream <chunk> or PORECHOP_TPU_STREAM, -v 0/1):
+    detection on the --check_reads sample (file head, or per-file heads for
+    Albacore-style directory input), then chunked phases 2+3 + output.
+    Byte-identical to the default path (v1 totals come from a cheap
+    record-counting pre-pass).
+
+    Multi-process: each rank streams only its contiguous record block into
+    a part, detection runs on its slice of the sample with the stats
+    merged across ranks, and rank 0 merges the parts and prints the
+    transcript from counters summed over ranks."""
+    read_type = stream_mod.input_read_type(args.input)
+    n_total = None
+    if mh or args.verbosity > 0:
+        n_total = stream_mod.count_records(args.input)
+    if args.verbosity > 0:
+        stream_mod.print_load_text(args.input, args.print_dest, total=n_total)
+    check_range = None
+    if mh:
+        _, n_check = stream_mod.collect_check_reads(
+            args.input, args.check_reads, record_range=(0, 0))
+        check_range = multihost.block_slice(n_check)
+    check_reads, n_check = stream_mod.collect_check_reads(
+        args.input, args.check_reads, record_range=check_range)
+    matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
+        args, check_reads, n_check, device, mh)
+    if not mh:
+        stream_mod.run_streaming(args, matching_sets,
+                                 forward_or_reverse_barcodes, read_type,
+                                 chunk_size, total_reads=n_total,
+                                 device=device)
+        return
+
+    block = multihost.block_slice(n_total)
+    counts = []
+
+    def write_block(dest_path, plain):
+        part_args = copy.copy(args)
+        part_args.format = plain
+        part_args.verbosity = 0
+        if args.barcode_dir is not None:
+            part_args.barcode_dir = dest_path
+        else:
+            part_args.output = dest_path
+        block_counts, bins = stream_mod.run_streaming(
+            part_args, matching_sets, forward_or_reverse_barcodes,
+            read_type, chunk_size, record_range=block, device=device)
+        counts.extend(block_counts)
+        return bins
+
+    def phase_text():
+        if matching_sets:
+            _print_phase_text(args, matching_sets, counts, n_total)
+        elif args.verbosity > 0:
+            print('No adapters found - output reads are unchanged from '
+                  'input reads\n', file=args.print_dest)
+
+    multihost.write_block_and_merge(args, read_type, write_block,
+                                    pre_merge_hook=phase_text)
 
 
 def get_arguments(argv=None):

@@ -45,13 +45,13 @@ import datetime
 import json
 import os
 import shutil
-import subprocess
 import sys
-from collections import defaultdict
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..pipeline import output, stream
 
 # How long a collective waits for the slowest rank.  Ranks meet after their
 # blocks' phases, and equal record counts keep their walls close; a dead
@@ -134,99 +134,23 @@ def sum_across_ranks(values):
 def load_reads_block(input_file_or_directory, verbosity, print_dest,
                      check_read_count):
     """Partitioned twin of pipeline.phases.load_reads (reference
-    porechop.py:224-283): a cheap record-counting scan first, then a parse
-    that materializes ONLY this rank's contiguous record block plus its
-    slice of the global --check_reads sample.  Returns
-    (reads_block, check_block, read_type, n_total, n_check_total).
-
-    The v1 'Loading reads' text prints GLOBAL totals (it is what a
-    single-process run would print); PORECHOP_TPU_LOAD_STATS=<path> dumps
-    {'materialized': M, 'total': N} to <path>.rank<r> for tests asserting
-    a rank never builds the other ranks' read objects."""
-    from ..pipeline import stream as stream_mod
-    from ..pipeline.model import Read
-    from ..pipeline.phases import get_albacore_barcode_from_path
-    from ..utils.fastx import get_sequence_file_type
-    from ..utils.text import bold_underline, int_to_str
-
-    reads, check = [], []
-    materialized = 0
-
-    if os.path.isfile(input_file_or_directory):
-        if verbosity > 0:
-            print('\n' + bold_underline('Loading reads'), flush=True,
-                  file=print_dest)
-            print(input_file_or_directory, flush=True, file=print_dest)
-        read_type = get_sequence_file_type(input_file_or_directory)
-        n = stream_mod.count_records(input_file_or_directory)
-        n_check = min(check_read_count, n)
-        lo, hi = block_slice(n)
-        clo, chi = block_slice(n_check)
-        for idx, (name, seq, quals) in enumerate(
-                stream_mod._iter_records(input_file_or_directory)):
-            if idx >= hi and idx >= chi:
-                break
-            owned = lo <= idx < hi
-            c_owned = clo <= idx < chi
-            if owned or c_owned:
-                r = Read(name, seq, quals or '')
-                materialized += 1
-                if owned:
-                    reads.append(r)
-                if c_owned:
-                    check.append(r)
-    elif os.path.isdir(input_file_or_directory):
-        if verbosity > 0:
-            print('\n' + bold_underline('Searching for FASTQ files'),
-                  flush=True, file=print_dest)
-        fastqs = stream_mod.list_fastqs(input_file_or_directory)
-        read_type = 'FASTQ'
-        counts = [stream_mod.count_records(f) for f in fastqs]
-        n = sum(counts)
-        check_per_file = int(round(check_read_count / len(fastqs)))
-        f_checks = [min(check_per_file, c) for c in counts]
-        n_check = sum(f_checks)
-        lo, hi = block_slice(n)
-        clo, chi = block_slice(n_check)
-        base = cbase = 0
-        for path, cnt, f_check in zip(fastqs, counts, f_checks):
-            if verbosity > 0:
-                print(path, flush=True, file=print_dest)
-            no_reads = base + cnt <= lo or base >= hi
-            no_check = cbase + f_check <= clo or cbase >= chi
-            if not (no_reads and no_check):
-                albacore = get_albacore_barcode_from_path(path)
-                for j, (name, seq, quals) in enumerate(
-                        stream_mod._iter_records(path)):
-                    gidx = base + j
-                    gchk = cbase + j if j < f_check else -1
-                    if gidx >= hi and (gchk < 0 or gchk >= chi):
-                        break
-                    owned = lo <= gidx < hi
-                    c_owned = 0 <= gchk and clo <= gchk < chi
-                    if owned or c_owned:
-                        r = Read(name, seq, quals or '')
-                        r.albacore_barcode_call = albacore
-                        materialized += 1
-                        if owned:
-                            reads.append(r)
-                        if c_owned:
-                            check.append(r)
-            base += cnt
-            cbase += f_check
-        if verbosity > 0:
-            print('', flush=True, file=print_dest)
-    else:
-        sys.exit('Error: could not find ' + input_file_or_directory)
-
+    porechop.py:224-283): a cheap record-counting scan first, then parses
+    that build ONLY this rank's contiguous record block and its slice of
+    the global --check_reads sample.  The v1 'Loading reads' text prints
+    GLOBAL totals, as a single-process run would.  Returns
+    (reads_block, check_block, read_type, n_total, n_check_total)."""
+    input_ = input_file_or_directory
+    if not os.path.exists(input_):
+        sys.exit('Error: could not find ' + input_)
+    n = stream.count_records(input_)
     if verbosity > 0:
-        print(int_to_str(n) + ' reads loaded\n\n', flush=True,
-              file=print_dest)
-    stats_path = os.environ.get('PORECHOP_TPU_LOAD_STATS')
-    if stats_path:
-        with open('%s.rank%d' % (stats_path, rank()), 'w') as f:
-            json.dump({'materialized': materialized, 'total': n}, f)
-    return reads, check, read_type, n, n_check
+        stream.print_load_text(input_, print_dest, total=n)
+    reads = list(stream.iter_input_reads(input_, block_slice(n)))
+    _, n_check = stream.collect_check_reads(input_, check_read_count,
+                                            record_range=(0, 0))
+    check, _ = stream.collect_check_reads(input_, check_read_count,
+                                          record_range=block_slice(n_check))
+    return reads, check, stream.input_read_type(input_), n, n_check
 
 
 def fold_detection_stats(allv):
@@ -254,66 +178,9 @@ def merge_detection_stats(gm, gl):
     return fold_detection_stats(_allgather(local))
 
 
-# ---------------------------------------------------------------------------
-# -v 1 transcript blocks.  Every piece of the reference's v1 text is a pure
-# function of global counters (progress totals, trim/middle summaries), so
-# rank 0 re-emits it byte-identically after each phase completes (the same
-# re-sequencing trick pipeline/stream.py uses for chunked runs).  Ranks > 0
-# call these too (their print_dest is devnull), keeping control flow SPMD.
-# ---------------------------------------------------------------------------
-
-def print_detection_block(n_check, print_dest):
-    """Header + progress of phase 1 (reference porechop.py:286-327 v1 text)."""
-    from ..pipeline.phases import output_progress_line
-    from ..utils.text import bold_underline
-    print(bold_underline('Looking for known adapter sets'), flush=True,
-          file=print_dest)
-    output_progress_line(0, n_check, print_dest)
-    for r in range(1, n_check + 1):
-        output_progress_line(r, n_check, print_dest)
-    output_progress_line(n_check, n_check, print_dest, end_newline=True)
-
-
-def print_end_trim_block(matching_sets, n_total, start_count, start_total,
-                         end_count, end_total, print_dest):
-    """Phase-2 header + progress + summary from global counters
-    (reference porechop.py:438-530 v1 text)."""
-    from ..pipeline.phases import (end_trim_summary_counts,
-                                   output_progress_line,
-                                   print_end_trim_header)
-    print_end_trim_header(matching_sets, print_dest)
-    output_progress_line(0, n_total, print_dest)
-    for r in range(1, n_total + 1):
-        output_progress_line(r, n_total, print_dest)
-    output_progress_line(n_total, n_total, print_dest, end_newline=True)
-    print('', file=print_dest)
-    end_trim_summary_counts(n_total, start_count, start_total, end_count,
-                            end_total, print_dest)
-
-
-def print_middle_block(n_total, middle_count, discard_middle, threads,
-                       print_dest):
-    """Phase-3 banner + progress + summary (reference porechop.py:533-604,
-    including the threaded progress off-by-one)."""
-    from ..pipeline.phases import middle_summary_counts, output_progress_line
-    from ..utils.text import bold_underline
-    verb = 'Discarding' if discard_middle else 'Splitting'
-    print(bold_underline(verb + ' reads containing middle adapters'),
-          file=print_dest)
-    output_progress_line(0, n_total, print_dest)
-    for r in range(1, n_total + 1):
-        output_progress_line(r if threads == 1 else r + 1, n_total,
-                             print_dest)
-    output_progress_line(n_total, n_total, print_dest, end_newline=True)
-    print('', flush=True, file=print_dest)
-    middle_summary_counts(middle_count, n_total, discard_middle, print_dest)
-
-
-def _gather_chunk() -> int:
-    """Per-round allgather payload of gather_text_blocks, in bytes
-    (PORECHOP_TPU_GATHER_CHUNK, default 4 MB): every rank holds
-    O(world x chunk) transient bytes per round, never O(world x dump)."""
-    return max(1, int(os.environ.get('PORECHOP_TPU_GATHER_CHUNK', 4 << 20)))
+# Per-round allgather payload of gather_text_blocks, in bytes: every rank
+# holds O(world x chunk) transient bytes per round, never O(world x dump).
+GATHER_CHUNK = 4 << 20
 
 
 def gather_text_blocks(text: str, sink=None):
@@ -325,7 +192,7 @@ def gather_text_blocks(text: str, sink=None):
     whose global order is the concatenation of the ranks' contiguous read
     blocks.
 
-    The gather runs in rounds of PORECHOP_TPU_GATHER_CHUNK bytes per rank,
+    The gather runs in rounds of GATHER_CHUNK bytes per rank,
     so transient memory is O(world x chunk) on every rank regardless of
     dump size; rank 0 spools ranks' dumps to anonymous temp files (O(total)
     disk, the size of the text it is about to print) and streams them out
@@ -337,7 +204,7 @@ def gather_text_blocks(text: str, sink=None):
     raw = text.encode('utf-8')
     lens = _allgather(np.array([len(raw)], np.int64)).reshape(-1)
     width = int(lens.max())
-    chunk = _gather_chunk()
+    chunk = GATHER_CHUNK
     w, r = world(), rank()
 
     if width <= chunk:                       # common case: one round
@@ -390,19 +257,19 @@ def _part_path(base: str, r: int) -> str:
     return '%s.mhpart%04d' % (base, r)
 
 
-def output_and_merge(reads, args, read_type, output_reads_fn):
+def output_and_merge(reads, args, read_type):
     """Per-rank serialization + rank-0 merge of an in-memory read block."""
     def write_block(dest_path, plain):
         if args.barcode_dir is not None:
-            return output_reads_fn(
+            return output.output_reads(
                 reads, plain, None, read_type, 0, args.discard_middle,
                 args.min_split_read_size, args.print_dest, dest_path,
                 args.input, args.untrimmed, args.threads,
                 args.discard_unassigned, return_counts=True)
-        output_reads_fn(reads, plain, dest_path, read_type, 0,
-                        args.discard_middle, args.min_split_read_size,
-                        args.print_dest, None, args.input, args.untrimmed,
-                        args.threads, args.discard_unassigned)
+        output.output_reads(reads, plain, dest_path, read_type, 0,
+                            args.discard_middle, args.min_split_read_size,
+                            args.print_dest, None, args.input, args.untrimmed,
+                            args.threads, args.discard_unassigned)
 
     write_block_and_merge(args, read_type, write_block)
 
@@ -422,11 +289,8 @@ def write_block_and_merge(args, read_type, write_block_fn,
     any output-section text: the streaming composition prints its deferred
     phase transcript there (the counters only exist once the chunks have
     flowed)."""
-    from ..pipeline import output as out_mod
-    from ..utils.text import bold_underline
-
-    out_format = out_mod.resolve_format(args.format, args.output, read_type,
-                                        args.barcode_dir, args.input)
+    out_format = output.resolve_format(args.format, args.output, read_type,
+                                       args.barcode_dir, args.input)
     plain = out_format[:-3] if out_format.endswith('.gz') else out_format
     r, w = rank(), world()
     gz = out_format.endswith('.gz')
@@ -453,17 +317,9 @@ def write_block_and_merge(args, read_type, write_block_fn,
     # banner and the pigz/gzip election line print in the single-process
     # positions; ranks > 0 print to devnull, keeping control flow SPMD.
     if args.verbosity > 0:
-        trimmed_or_untrimmed = 'untrimmed' if args.untrimmed else 'trimmed'
-        if args.barcode_dir is not None:
-            verb, destination = 'Saving ', 'barcode-specific files'
-        elif args.output is None:
-            verb, destination = 'Outputting ', 'stdout'
-        else:
-            verb, destination = 'Saving ', 'file'
-        print(bold_underline(verb + trimmed_or_untrimmed + ' reads to '
-                             + destination), flush=True,
-              file=args.print_dest)
-    gzip_cmd = (out_mod.gzip_command_for(
+        output.print_output_banner(args.untrimmed, args.barcode_dir,
+                                   args.output, args.print_dest)
+    gzip_cmd = (output.gzip_command_for(
         args.threads, args.verbosity if r == 0 else 0) if gz else 'gzip')
 
     if args.barcode_dir is not None:
@@ -516,17 +372,10 @@ def write_block_and_merge(args, read_type, write_block_fn,
                         shutil.copyfileobj(f, out)
                     os.remove(p)
             if gz:
-                subprocess.check_output(
-                    gzip_cmd + ' -c ' + target + ' > ' + args.output,
-                    stderr=subprocess.STDOUT, shell=True)
-                os.remove(target)
+                output.gzip_into(gzip_cmd, target, args.output)
     sync()
     if args.verbosity > 0:
-        if args.output is None:
-            print('Done', flush=True, file=args.print_dest)
-        else:
-            print('\nSaved result to ' + os.path.abspath(args.output),
-                  file=args.print_dest)
+        output.print_output_done(args.output, args.print_dest)
         print('', flush=True, file=args.print_dest)
 
 
@@ -544,21 +393,14 @@ def _merge_bins(args, plain_format, gzipped, gzip_command='gzip'):
     """Rank 0: append each rank's bin parts in rank order, aggregate the
     counts, compress, and print the counts table (reference
     porechop.py:679-704) from the aggregated numbers."""
-    from ..utils.text import int_to_str, print_table
-
-    read_counts = defaultdict(int)
-    base_counts = defaultdict(int)
-    names = []
+    bins = {}
     for k in range(world()):
         part_dir = os.path.join(args.barcode_dir, '.mh%04d' % k)
         with open(os.path.join(part_dir, 'counts.json')) as f:
             counts = json.load(f)
         for name, (rc, bc) in counts.items():
-            if name not in names:
-                names.append(name)
-            read_counts[name] += rc
-            base_counts[name] += bc
-        for name in counts:
+            have = bins.get(name, (0, 0))
+            bins[name] = (have[0] + rc, have[1] + bc)
             src = os.path.join(part_dir, name + '.' + plain_format)
             dst = os.path.join(args.barcode_dir, name + '.' + plain_format)
             with open(dst, 'ab') as out, open(src, 'rb') as f:
@@ -566,26 +408,5 @@ def _merge_bins(args, plain_format, gzipped, gzip_command='gzip'):
             os.remove(src)
         os.remove(os.path.join(part_dir, 'counts.json'))
         os.rmdir(part_dir)
-
-    table = [['Barcode', 'Reads', 'Bases', 'File']]
-    for name in sorted(names):
-        bin_filename = os.path.join(args.barcode_dir,
-                                    name + '.' + plain_format)
-        if gzipped:
-            if not os.path.isfile(bin_filename):
-                continue
-            gz_name = bin_filename + '.gz'
-            if os.path.isfile(gz_name):
-                os.remove(gz_name)
-            try:
-                subprocess.check_output(gzip_command + ' ' + bin_filename,
-                                        stderr=subprocess.STDOUT, shell=True)
-            except subprocess.CalledProcessError:
-                pass                     # reference ignores gzip failures
-            bin_filename = gz_name
-        table.append([name, int_to_str(read_counts[name]),
-                      int_to_str(base_counts[name]), bin_filename])
-    if args.verbosity > 0:
-        print('')
-        print_table(table, args.print_dest, alignments='LRRL',
-                    max_col_width=60, col_separation=2)
+    output.finish_bins(bins, args.barcode_dir, plain_format, gzipped,
+                       gzip_command, args.verbosity, args.print_dest)

@@ -1,12 +1,13 @@
 """Output writer: format resolution, stdout/file/barcode-bin routing and
-compression (reference porechop.py:607-734)."""
+compression (reference porechop.py:607-734).  The output section's text
+and the bins' compression and table are shared with the streamed and
+multi-process runs (pipeline/stream.py, parallel/multihost.py)."""
 
 from __future__ import annotations
 
 import os
 import shutil
 import subprocess
-import sys
 from collections import defaultdict
 
 from ..utils.text import bold_underline, int_to_str, print_table
@@ -45,20 +46,68 @@ def gzip_command_for(threads, verbosity, print_dest=None):
     return 'gzip'
 
 
+def gzip_into(gzip_command, src, dst):
+    """Compresses the plain file src into dst and removes src."""
+    subprocess.check_output(gzip_command + ' -c ' + src + ' > ' + dst,
+                            stderr=subprocess.STDOUT, shell=True)
+    os.remove(src)
+
+
+def print_output_banner(untrimmed, barcode_dir, output, print_dest):
+    """The output section's heading (porechop.py:607-616)."""
+    trimmed_or_untrimmed = 'untrimmed' if untrimmed else 'trimmed'
+    if barcode_dir is not None:
+        verb, destination = 'Saving ', 'barcode-specific files'
+    elif output is None:
+        verb, destination = 'Outputting ', 'stdout'
+    else:
+        verb, destination = 'Saving ', 'file'
+    print(bold_underline(verb + trimmed_or_untrimmed + ' reads to '
+                         + destination), flush=True, file=print_dest)
+
+
+def print_output_done(output, print_dest):
+    """The output section's last line for stdout or -o output."""
+    if output is None:
+        print('Done', flush=True, file=print_dest)
+    else:
+        print('\nSaved result to ' + os.path.abspath(output), file=print_dest)
+
+
+def finish_bins(bins, barcode_dir, plain_format, gzipped, gzip_command,
+                verbosity, print_dest):
+    """Compresses each written bin file when the format asks for it and
+    prints the table of reads and bases per bin (porechop.py:679-704);
+    bins = {name: (reads, bases)}."""
+    table = [['Barcode', 'Reads', 'Bases', 'File']]
+    for name in sorted(bins):
+        bin_filename = os.path.join(barcode_dir, name + '.' + plain_format)
+        if gzipped:
+            if not os.path.isfile(bin_filename):
+                continue
+            bin_filename_gz = bin_filename + '.gz'
+            if os.path.isfile(bin_filename_gz):
+                os.remove(bin_filename_gz)
+            try:
+                subprocess.check_output(gzip_command + ' ' + bin_filename,
+                                        stderr=subprocess.STDOUT, shell=True)
+            except subprocess.CalledProcessError:
+                pass                     # the reference ignores this failure
+            bin_filename = bin_filename_gz
+        table.append([name, int_to_str(bins[name][0]),
+                      int_to_str(bins[name][1]), bin_filename])
+    if verbosity > 0:
+        print('')
+        print_table(table, print_dest, alignments='LRRL', max_col_width=60,
+                    col_separation=2)
+
+
 def output_reads(reads, out_format, output, read_type, verbosity,
                  discard_middle, min_split_size, print_dest, barcode_dir,
                  input_filename, untrimmed, threads, discard_unassigned,
                  return_counts=False):
     if verbosity > 0:
-        trimmed_or_untrimmed = 'untrimmed' if untrimmed else 'trimmed'
-        if barcode_dir is not None:
-            verb, destination = 'Saving ', 'barcode-specific files'
-        elif output is None:
-            verb, destination = 'Outputting ', 'stdout'
-        else:
-            verb, destination = 'Saving ', 'file'
-        print(bold_underline(verb + trimmed_or_untrimmed + ' reads to '
-                             + destination), flush=True, file=print_dest)
+        print_output_banner(untrimmed, barcode_dir, output, print_dest)
 
     out_format = resolve_format(out_format, output, read_type, barcode_dir,
                                 input_filename)
@@ -85,7 +134,7 @@ def output_reads(reads, out_format, output, read_type, verbosity,
                         else read.get_fastq(min_split_size, discard_middle))
             print(read_str, end='')
         if verbosity > 0:
-            print('Done', flush=True, file=print_dest)
+            print_output_done(output, print_dest)
     else:
         if gzipped_out:
             out_filename = 'TEMP_' + str(os.getpid()) + '.fastq'
@@ -98,13 +147,9 @@ def output_reads(reads, out_format, output, read_type, verbosity,
                             else read.get_fastq(min_split_size, discard_middle))
                 out.write(read_str)
         if gzipped_out:
-            subprocess.check_output(gzip_command + ' -c ' + out_filename
-                                    + ' > ' + output,
-                                    stderr=subprocess.STDOUT, shell=True)
-            os.remove(out_filename)
+            gzip_into(gzip_command, out_filename, output)
         if verbosity > 0:
-            print('\nSaved result to ' + os.path.abspath(output),
-                  file=print_dest)
+            print_output_done(output, print_dest)
 
     if verbosity > 0:
         print('', flush=True, file=print_dest)
@@ -113,6 +158,8 @@ def output_reads(reads, out_format, output, read_type, verbosity,
 def _output_to_bins(reads, out_format, verbosity, discard_middle,
                     min_split_size, print_dest, barcode_dir, untrimmed,
                     gzipped_out, gzip_command, discard_unassigned):
+    """Writes the reads into one file per barcode; returns the
+    {name: (reads, bases)} counts (the multi-process merge adds them up)."""
     if not os.path.isdir(barcode_dir):
         os.makedirs(barcode_dir)
     barcode_files = {}
@@ -139,31 +186,10 @@ def _output_to_bins(reads, out_format, verbosity, discard_middle,
             seq_length = read.seq_length_with_start_end_adapters_trimmed()
         barcode_base_counts[barcode_name] += seq_length
 
-    table = [['Barcode', 'Reads', 'Bases', 'File']]
-    for barcode_name in sorted(barcode_files.keys()):
-        barcode_files[barcode_name].close()
-        bin_filename = os.path.join(barcode_dir,
-                                    barcode_name + '.' + out_format)
-        if gzipped_out:
-            if not os.path.isfile(bin_filename):
-                continue
-            bin_filename_gz = bin_filename + '.gz'
-            if os.path.isfile(bin_filename_gz):
-                os.remove(bin_filename_gz)
-            try:
-                subprocess.check_output(gzip_command + ' ' + bin_filename,
-                                        stderr=subprocess.STDOUT, shell=True)
-            except subprocess.CalledProcessError:
-                pass
-            bin_filename = bin_filename_gz
-        table.append([barcode_name,
-                      int_to_str(barcode_read_counts[barcode_name]),
-                      int_to_str(barcode_base_counts[barcode_name]),
-                      bin_filename])
-    if verbosity > 0:
-        print('')
-        print_table(table, print_dest, alignments='LRRL', max_col_width=60,
-                    col_separation=2)
-    # For the multi-host merge (parallel/multihost.py).
-    return {name: (barcode_read_counts[name], barcode_base_counts[name])
+    for f in barcode_files.values():
+        f.close()
+    bins = {name: (barcode_read_counts[name], barcode_base_counts[name])
             for name in barcode_files}
+    finish_bins(bins, barcode_dir, out_format, gzipped_out, gzip_command,
+                verbosity, print_dest)
+    return bins

@@ -221,6 +221,16 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
             if x.best_start_or_end_score() >= adapter_threshold]
 
 
+def print_detection_block(n_check, print_dest):
+    """The -v 1 text of phase 1 for n_check reads, printed after the fact
+    (reference porechop.py:286-327): header and progress."""
+    print(bold_underline('Looking for known adapter sets'), flush=True,
+          file=print_dest)
+    for r in range(n_check + 1):
+        output_progress_line(r, n_check, print_dest)
+    output_progress_line(n_check, n_check, print_dest, end_newline=True)
+
+
 # ---------------------------------------------------------------------------
 # Host-side set surgery (reference porechop.py:330-435)
 # ---------------------------------------------------------------------------
@@ -453,6 +463,35 @@ def end_trim_summary_counts(n_reads, start_count, start_total, end_count,
     print('\n', file=print_dest)
 
 
+def trim_counts(reads):
+    """The counters that the phase-2 and phase-3 summaries print: reads
+    trimmed at the start and their bp, the same at the end, and reads with
+    middle adapters."""
+    return [sum(1 for x in reads if x.start_trim_amount),
+            sum(x.start_trim_amount for x in reads),
+            sum(1 for x in reads if x.end_trim_amount),
+            sum(x.end_trim_amount for x in reads),
+            sum(1 for x in reads if x.middle_adapter_ranges)]
+
+
+def print_end_trim_block(matching_sets, n_reads, counts, print_dest):
+    """The -v 1 text of phase 2 over n_reads reads, printed after the fact
+    from trim_counts (reference porechop.py:438-530): header, progress and
+    summary."""
+    print_end_trim_header(matching_sets, print_dest)
+    for r in range(n_reads + 1):
+        output_progress_line(r, n_reads, print_dest)
+    print_end_trim_close(n_reads, counts, print_dest)
+
+
+def print_end_trim_close(n_reads, counts, print_dest):
+    """The end of phase 2's -v 1 text: the last progress line and the
+    summary."""
+    output_progress_line(n_reads, n_reads, print_dest, end_newline=True)
+    print('', file=print_dest)
+    end_trim_summary_counts(n_reads, *counts[:4], print_dest)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: middle adapters (reference porechop.py:533-595,
 # nanopore_read.py:210-243)
@@ -669,6 +708,23 @@ def middle_summary_counts(middle_trim_count, n_reads, discard_middle,
     print(int_to_str(middle_trim_count) + ' / ' + int_to_str(n_reads)
           + ' reads were ' + verb + ' based on middle adapters\n\n',
           file=print_dest)
+
+
+def print_middle_block(n_reads, middle_count, discard_middle, threads,
+                       print_dest):
+    """The -v 1 text of phase 3 over n_reads reads, printed after the fact
+    (reference porechop.py:533-604, with the threaded progress
+    off-by-one): banner, progress and summary."""
+    verb = 'Discarding' if discard_middle else 'Splitting'
+    print(bold_underline(verb + ' reads containing middle adapters'),
+          file=print_dest)
+    output_progress_line(0, n_reads, print_dest)
+    for r in range(1, n_reads + 1):
+        output_progress_line(r if threads == 1 else r + 1, n_reads,
+                             print_dest)
+    output_progress_line(n_reads, n_reads, print_dest, end_newline=True)
+    print('', flush=True, file=print_dest)
+    middle_summary_counts(middle_count, n_reads, discard_middle, print_dest)
 
 
 # ---------------------------------------------------------------------------

@@ -22,26 +22,26 @@ order.  Totals for progress come from a cheap record-counting pre-pass.
 Verbosity >= 2 needs per-read dumps in input order mid-stream, so the run
 takes the in-memory path instead (on the same device).
 
-Every device launch is made on the calling thread: the reader thread only
-parses records and the writer thread only serializes reads.
+Each chunk is parsed, computed and written in turn on the calling thread,
+so at most one chunk of reads is alive besides the detection sample.
 """
 
 from __future__ import annotations
 
 import os
-import queue
 import sys
-import threading
 from collections import defaultdict
 
 from ..utils.fastx import get_compression_type, get_sequence_file_type
-from ..utils.text import bold_underline, int_to_str, print_table
+from ..utils.text import bold_underline, int_to_str
 from .model import Read
-from .output import gzip_command_for, resolve_format
-from .phases import (end_trim_summary_counts, find_adapters_at_read_ends,
+from .output import (finish_bins, gzip_command_for, gzip_into,
+                     print_output_banner, print_output_done, resolve_format)
+from .phases import (find_adapters_at_read_ends,
                      find_adapters_in_read_middles,
-                     get_albacore_barcode_from_path, middle_summary_counts,
-                     output_progress_line, print_end_trim_header)
+                     get_albacore_barcode_from_path, output_progress_line,
+                     print_end_trim_close, print_end_trim_header,
+                     print_middle_block, trim_counts)
 
 
 def stream_chunk_size(args) -> int | None:
@@ -153,9 +153,15 @@ def _make_read(name, seq, quals, albacore):
     return r
 
 
-def iter_input_reads(input_):
-    """Yields Read objects streaming from a file or a directory."""
-    for rec in iter_input_records(input_):
+def iter_input_reads(input_, record_range=None):
+    """Yields Read objects streaming from a file or a directory; with
+    record_range=(lo, hi), only those of records lo to hi - 1."""
+    for idx, rec in enumerate(iter_input_records(input_)):
+        if record_range is not None:
+            if idx < record_range[0]:
+                continue            # skipped records stay raw tuples
+            if idx >= record_range[1]:
+                return
         yield _make_read(*rec)
 
 
@@ -177,9 +183,7 @@ def collect_check_reads(input_, check_read_count, record_range=None):
                     break
                 if record_range is None or (record_range[0] <= idx
                                             < record_range[1]):
-                    r = Read(name, seq, quals or '')
-                    r.albacore_barcode_call = albacore
-                    out.append(r)
+                    out.append(_make_read(name, seq, quals, albacore))
                 idx += 1
         return out, idx
     idx = 0
@@ -229,8 +233,14 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
     record_range=(lo, hi): process only that record slice (the
     multi-process composition: each rank streams its own block into a part
     sink; the caller re-points args.output/barcode_dir at the part and pins
-    args.format to the plain format).  Returns
-    (totals, bin_read_counts, bin_base_counts) for the rank-0 merge."""
+    args.format to the plain format).  Returns (counts, bins): the
+    trim_counts of every read, and {bin: (reads, bases)}.
+
+    One loop reads, computes and writes each chunk in turn.  The JAX
+    package overlaps parsing and writing with the compute in a reader and
+    a writer thread; on an H100 that pipeline was slower than this loop
+    (PERF.md), since parsing and serializing hold the GIL that the launch
+    path needs."""
     check_barcodes = args.barcode_dir is not None
     verbosity = args.verbosity
     dest = args.print_dest
@@ -261,43 +271,37 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
 
     bin_read_counts = defaultdict(int)
     bin_base_counts = defaultdict(int)
-    totals = dict(start_count=0, start_total=0, end_count=0, end_total=0,
-                  middle_count=0, done=0)
+    counts = [0] * 5
+    done = 0
 
     if verbosity > 0 and matching_sets:
         print_end_trim_header(matching_sets, dest)
         output_progress_line(0, total_reads, dest)
 
     def compute_chunk(reads):
-        if matching_sets:
-            find_adapters_at_read_ends(
-                reads, matching_sets, 0, args.end_size, args.extra_end_trim,
-                args.end_threshold, args.scoring_scheme_vals, dest,
-                args.min_trim_size, args.threads, check_barcodes,
-                args.barcode_threshold, args.barcode_diff,
-                args.require_two_barcodes, forward_or_reverse_barcodes,
-                device=device)
-            if verbosity > 0:
-                # Live phase-2 progress over the global index range (every
-                # 10th + the final one, like output_progress_line's step).
-                for r in range(totals['done'] + 1,
-                               totals['done'] + len(reads) + 1):
-                    output_progress_line(r, total_reads, dest)
-            if not args.no_split:
-                find_adapters_in_read_middles(
-                    reads, matching_sets, 0, args.middle_threshold,
-                    args.extra_middle_trim_good_side,
-                    args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
-                    dest, args.threads, args.discard_middle, device=device)
-        totals['done'] += len(reads)
+        if not matching_sets:
+            return
+        find_adapters_at_read_ends(
+            reads, matching_sets, 0, args.end_size, args.extra_end_trim,
+            args.end_threshold, args.scoring_scheme_vals, dest,
+            args.min_trim_size, args.threads, check_barcodes,
+            args.barcode_threshold, args.barcode_diff,
+            args.require_two_barcodes, forward_or_reverse_barcodes,
+            device=device)
+        if verbosity > 0:
+            # Live phase-2 progress over the global index range (every
+            # 10th + the final one, like output_progress_line's step).
+            for r in range(done + 1, done + len(reads) + 1):
+                output_progress_line(r, total_reads, dest)
+        if not args.no_split:
+            find_adapters_in_read_middles(
+                reads, matching_sets, 0, args.middle_threshold,
+                args.extra_middle_trim_good_side,
+                args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
+                dest, args.threads, args.discard_middle, device=device)
 
     def write_chunk(reads):
         for read in reads:
-            totals['start_count'] += 1 if read.start_trim_amount else 0
-            totals['start_total'] += read.start_trim_amount
-            totals['end_count'] += 1 if read.end_trim_amount else 0
-            totals['end_total'] += read.end_trim_amount
-            totals['middle_count'] += 1 if read.middle_adapter_ranges else 0
             if args.barcode_dir is not None:
                 name = read.barcode_call
                 if args.discard_unassigned and name == 'none':
@@ -321,280 +325,52 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
 
     def chunks():
         chunk = []
-        for idx, rec in enumerate(iter_input_records(args.input)):
-            if record_range is not None:
-                if idx < record_range[0]:
-                    continue            # skipped records stay raw tuples
-                if idx >= record_range[1]:
-                    break
-            chunk.append(_make_read(*rec))
-            if len(chunk) >= chunk_size:
+        for read in iter_input_reads(args.input, record_range):
+            chunk.append(read)
+            if len(chunk) == chunk_size:
                 yield chunk
                 chunk = []
         if chunk:
             yield chunk
 
-    # Pipeline overlap: a reader thread parses the NEXT chunk and a writer
-    # thread serializes the PREVIOUS one while the current one computes on
-    # this thread (gzip inflation, device waits and file writes release the
-    # GIL).  Both queues are FIFO and bounded, so chunk order (and
-    # therefore every output byte) is unchanged and memory stays at a few
-    # chunks.  PORECHOP_TPU_NO_READAHEAD=1 selects the serial loop.
     try:
-        if os.environ.get('PORECHOP_TPU_NO_READAHEAD'):
-            for chunk in chunks():
-                compute_chunk(chunk)
-                write_chunk(chunk)
-        else:
-            _pump(chunks(), compute_chunk, write_chunk)
+        for chunk in chunks():
+            compute_chunk(chunk)
+            write_chunk(chunk)
+            counts = [a + b for a, b in zip(counts, trim_counts(chunk))]
+            done += len(chunk)
     finally:
         for fh in sinks.values():
             if fh is not sys.stdout:
                 fh.close()
 
     # Deferred v1 text: phase-2 close + summary, then the whole phase-3
-    # block (its progress is a pure function of the totals), in the
-    # reference's order (porechop.py:517-604).
+    # block, in the reference's order (porechop.py:517-604).
     if verbosity > 0 and matching_sets:
-        output_progress_line(total_reads, total_reads, dest,
-                             end_newline=True)
-        print('', file=dest)
-        end_trim_summary_counts(total_reads, totals['start_count'],
-                                totals['start_total'], totals['end_count'],
-                                totals['end_total'], dest)
+        print_end_trim_close(total_reads, counts, dest)
         if not args.no_split:
-            verb = 'Discarding' if args.discard_middle else 'Splitting'
-            print(bold_underline(verb + ' reads containing middle adapters'),
-                  file=dest)
-            output_progress_line(0, total_reads, dest)
-            for r in range(1, total_reads + 1):
-                output_progress_line(r if args.threads == 1 else r + 1,
-                                     total_reads, dest)
-            output_progress_line(total_reads, total_reads, dest,
-                                 end_newline=True)
-            print('', flush=True, file=dest)
-            middle_summary_counts(totals['middle_count'], total_reads,
-                                  args.discard_middle, dest)
+            print_middle_block(total_reads, counts[4], args.discard_middle,
+                               args.threads, dest)
     elif verbosity > 0:
         print('No adapters found - output reads are unchanged from input '
               'reads\n', file=dest)
 
     # Output section (reference porechop.py:607-704 text order).
     if verbosity > 0:
-        trimmed_or_untrimmed = 'untrimmed' if args.untrimmed else 'trimmed'
-        if args.barcode_dir is not None:
-            verb, destination = 'Saving ', 'barcode-specific files'
-        elif args.output is None:
-            verb, destination = 'Outputting ', 'stdout'
-        else:
-            verb, destination = 'Saving ', 'file'
-        print(bold_underline(verb + trimmed_or_untrimmed + ' reads to '
-                             + destination), flush=True, file=dest)
-
+        print_output_banner(args.untrimmed, args.barcode_dir, args.output,
+                            dest)
     gzip_cmd = (gzip_command_for(args.threads, verbosity, dest)
                 if gzipped_out else 'gzip')
-
+    bins = {k: (bin_read_counts[k], bin_base_counts[k])
+            for k in bin_read_counts}
     if args.barcode_dir is not None:
-        import subprocess
-        table = [['Barcode', 'Reads', 'Bases', 'File']]
-        for name in sorted(sinks):
-            bin_filename = os.path.join(args.barcode_dir,
-                                        name + '.' + plain_format)
-            if gzipped_out:
-                if not os.path.isfile(bin_filename):
-                    continue
-                gz_name = bin_filename + '.gz'
-                if os.path.isfile(gz_name):
-                    os.remove(gz_name)
-                try:
-                    subprocess.check_output(gzip_cmd + ' ' + bin_filename,
-                                            stderr=subprocess.STDOUT,
-                                            shell=True)
-                except subprocess.CalledProcessError:
-                    pass            # reference ignores bin-gzip failures
-                bin_filename = gz_name
-            table.append([name, int_to_str(bin_read_counts[name]),
-                          int_to_str(bin_base_counts[name]), bin_filename])
-        if verbosity > 0:
-            print('')
-            print_table(table, dest, alignments='LRRL', max_col_width=60,
-                        col_separation=2)
-    elif args.output is None:
-        if verbosity > 0:
-            print('Done', flush=True, file=dest)
+        finish_bins(bins, args.barcode_dir, plain_format, gzipped_out,
+                    gzip_cmd, verbosity, dest)
     else:
         if gzipped_out:
-            import subprocess
-            subprocess.check_output(
-                gzip_cmd + ' -c ' + args.output + '.tmp > ' + args.output,
-                shell=True, stderr=subprocess.STDOUT)
-            os.remove(args.output + '.tmp')
+            gzip_into(gzip_cmd, args.output + '.tmp', args.output)
         if verbosity > 0:
-            print('\nSaved result to ' + os.path.abspath(args.output),
-                  file=dest)
+            print_output_done(args.output, dest)
     if verbosity > 0:
         print('', flush=True, file=dest)
-    return totals, dict(bin_read_counts), dict(bin_base_counts)
-
-
-def _pump(chunks, compute_chunk, write_chunk):
-    """Runs compute_chunk on this thread over `chunks`, parsed ahead by a
-    reader thread, and hands each computed chunk to a writer thread.  An
-    exception in any of the three stops the pump, both threads end before
-    this returns, and the first exception is raised here."""
-    rq = queue.Queue(maxsize=2)
-    wq = queue.Queue(maxsize=2)
-    werr = []
-    stop = threading.Event()
-
-    def reader():
-        try:
-            for chunk in chunks:
-                if stop.is_set():          # pump died: exit quietly
-                    return
-                rq.put(chunk)
-            rq.put(None)
-        except BaseException as e:         # incl. SystemExit; re-raised below
-            rq.put(e)
-
-    def writer():
-        # On failure, record the error but KEEP DRAINING until the None
-        # sentinel: a dead consumer would deadlock the main thread's
-        # bounded wq.put (and transitively the reader).
-        while True:
-            item = wq.get()
-            if item is None:
-                return
-            if not werr:
-                try:
-                    write_chunk(item)
-                except BaseException as e:  # re-raised below
-                    werr.append(e)
-
-    rt = threading.Thread(target=reader, name='porechop-stream-reader',
-                          daemon=True)
-    wt = threading.Thread(target=writer, name='porechop-stream-writer',
-                          daemon=True)
-    rt.start()
-    wt.start()
-    rerr = None
-    try:
-        while True:
-            item = rq.get()
-            if item is None:
-                break
-            if isinstance(item, BaseException):
-                rerr = item
-                break
-            if not werr:    # writer died: stop computing, just drain
-                compute_chunk(item)
-            wq.put(item)
-    finally:
-        # Always release both threads: a compute_chunk/wq.put failure must
-        # not leave the writer blocked on wq.get and the reader on rq.put.
-        # The writer ends on the None sentinel (it always drains, so the
-        # put can't deadlock); the reader exits via its stop check once the
-        # rq drain below unblocks its pending put.
-        stop.set()
-        wq.put(None)
-        wt.join()
-        while rt.is_alive():
-            try:
-                rq.get(timeout=0.1)
-            except queue.Empty:
-                pass
-        rt.join()
-    if rerr is not None:
-        raise rerr
-    if werr:
-        raise werr[0]
-
-
-def run_streaming_multihost(args, chunk_size, device=None):
-    """Streaming x multi-process composition: each torch.distributed rank
-    streams ONLY its contiguous record block in bounded-memory chunks into
-    a part sink, detection stats merge with the cross-process collective,
-    and rank 0 concatenates parts / aggregates counters, so the output and
-    the -v 1 text are byte-identical to a single-process streaming run."""
-    import copy
-
-    from ..parallel import multihost
-    from .phases import (add_full_barcode_adapter_sets, choose_barcoding_kit,
-                         display_adapter_set_results,
-                         find_matching_adapter_sets, fix_up_1d2_sets)
-
-    dest = args.print_dest
-    mh_v1 = args.verbosity == 1      # stream_chunk_size caps verbosity at 1
-    read_type = input_read_type(args.input)
-
-    n_total = count_records(args.input)
-    lo, hi = multihost.block_slice(n_total)
-    if args.verbosity > 0:
-        print_load_text(args.input, dest, total=n_total)
-
-    # Detection on this rank's slice of the global check sample; the
-    # collective folds the per-(set, side) maxima globally.
-    _, n_check = collect_check_reads(args.input, args.check_reads,
-                                     record_range=(0, 0))
-    clo, chi = multihost.block_slice(n_check)
-    check_block, _ = collect_check_reads(args.input, args.check_reads,
-                                         record_range=(clo, chi))
-    # The prefilter may zero a sub-threshold side's score; barcode runs sum
-    # both sides' scores (choose_barcoding_kit), so they need exact ones.
-    matching_sets = find_matching_adapter_sets(
-        check_block, 0, args.end_size, args.scoring_scheme_vals, dest,
-        args.adapter_threshold, args.threads,
-        stats_merge=multihost.merge_detection_stats,
-        exact_scores=args.verbosity > 0 or args.barcode_dir is not None,
-        device=device)
-    if mh_v1:
-        multihost.print_detection_block(n_check, dest)
-    matching_sets = fix_up_1d2_sets(matching_sets)
-    if args.barcode_dir:
-        forward_or_reverse_barcodes = choose_barcoding_kit(
-            matching_sets, args.verbosity, dest)
-    else:
-        forward_or_reverse_barcodes = None
-    display_adapter_set_results(matching_sets, args.verbosity, dest)
-    matching_sets = add_full_barcode_adapter_sets(matching_sets)
-    if args.verbosity > 0:
-        print('\n', file=dest)
-
-    local = {}
-
-    def write_block(dest_path, plain):
-        part_args = copy.copy(args)
-        part_args.format = plain
-        part_args.verbosity = 0
-        if args.barcode_dir is not None:
-            part_args.barcode_dir = dest_path
-        else:
-            part_args.output = dest_path
-        totals, brc, bbc = run_streaming(
-            part_args, matching_sets, forward_or_reverse_barcodes,
-            read_type, chunk_size, record_range=(lo, hi), device=device)
-        local.update(totals)
-        return {k: (brc[k], bbc.get(k, 0)) for k in brc}
-
-    def phase_transcript():
-        if not matching_sets:
-            if args.verbosity > 0:
-                print('No adapters found - output reads are unchanged from '
-                      'input reads\n', file=dest)
-            return
-        if not mh_v1:
-            return
-        tot = multihost.sum_across_ranks([
-            local.get('start_count', 0), local.get('start_total', 0),
-            local.get('end_count', 0), local.get('end_total', 0),
-            local.get('middle_count', 0)])
-        multihost.print_end_trim_block(matching_sets, n_total, int(tot[0]),
-                                       int(tot[1]), int(tot[2]), int(tot[3]),
-                                       dest)
-        if not args.no_split:
-            multihost.print_middle_block(n_total, int(tot[4]),
-                                         args.discard_middle, args.threads,
-                                         dest)
-
-    multihost.write_block_and_merge(args, read_type, write_block,
-                                    pre_merge_hook=phase_transcript)
+    return counts, bins

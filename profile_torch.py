@@ -15,7 +15,7 @@ device synchronise, and the peak device memory), and under torch.profiler
 (the device's busy time, the sum of its kernel times, the CUDA kernels by
 total device time, and every kernel of csrc/).  A streamed run's phases 2
 and 3 sum over its chunks; what the wall holds besides the phases
-(parsing, waiting on the reader, writing, text) is `other`.  It prints
+(parsing, writing, text) is `other`.  It prints
 one JSON line per verbosity, with the launches of each kernel by shape;
 the idle share is 1 - busy / the unprofiled wall.  The full profiler
 tables go to build/profile/<input>[_stream]/.

@@ -7,7 +7,6 @@ must be byte-identical, whatever the blocks hold."""
 import contextlib
 import gzip
 import io
-import json
 import os
 import socket
 import subprocess
@@ -60,20 +59,26 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_ranks(args, workdir, n=2, env=None):
+def _run_ranks(args, workdir, n=2, prelude=None):
     """The port's CLI in n rank processes in a fresh `workdir`; returns
     [(stdout, stderr)] by rank and the files they wrote, with workdir's
-    path in the text replaced by <dir>.  Every rank must exit 0."""
+    path in the text replaced by <dir>.  Every rank must exit 0.  prelude:
+    Python statements that each rank runs before the CLI."""
     os.makedirs(workdir)
     port = _free_port()
+    command = [sys.executable, '-m', 'porechop_tpu_torch']
+    if prelude:
+        command = [sys.executable, '-c', 'import sys\n' + prelude + '\n'
+                   'from porechop_tpu_torch.cli import main\n'
+                   'main(sys.argv[1:])\n']
     procs = []
     for r in range(n):
         penv = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1',
                     PORECHOP_TPU_COORDINATOR='127.0.0.1:%d' % port,
                     PORECHOP_TPU_NUM_PROCS=str(n),
-                    PORECHOP_TPU_PROC_ID=str(r), **(env or {}))
+                    PORECHOP_TPU_PROC_ID=str(r))
         procs.append(subprocess.Popen(
-            [sys.executable, '-m', 'porechop_tpu_torch'] + args,
+            command + args,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=penv,
             cwd=workdir))
     outs = []
@@ -145,12 +150,14 @@ def test_two_ranks_barcode_bins_match_jax(inputs, tmp_path):
 
 def test_two_ranks_v2_gather_in_rounds(inputs, tmp_path):
     """-v 2: every rank's per-read dumps reach rank 0 in read order, here
-    in rounds of 256 bytes (PORECHOP_TPU_GATHER_CHUNK)."""
+    in rounds of 256 bytes (multihost.GATHER_CHUNK)."""
     args = ['-i', str(inputs / 'reads.fastq'), '-o', 'out.fastq', '-v', '2',
             '-t', '4']
     want = _jax_single(args, tmp_path / 'jax')
-    ranks, files = _run_ranks(args + ['--device', 'cpu'], tmp_path / 'port',
-                              env={'PORECHOP_TPU_GATHER_CHUNK': '256'})
+    ranks, files = _run_ranks(
+        args + ['--device', 'cpu'], tmp_path / 'port',
+        prelude='from porechop_tpu_torch.parallel import multihost\n'
+                'multihost.GATHER_CHUNK = 256')
     assert len(want[0]) > 20 * 256
     assert files == want[1]
     assert ranks[0][0] == want[0]
@@ -180,21 +187,30 @@ def test_rank_with_an_empty_block(inputs, tmp_path, stream):
     assert ranks[0][0] == want[0]
 
 
+# Each rank counts the reads that the input parse builds and writes the
+# count to loadstats.rank<r> in its working directory as it exits.
+_COUNT_READS = """import atexit
+from porechop_tpu_torch.pipeline import stream
+built = []
+class Counted(stream.Read):
+    def __init__(self, *a):
+        built.append(1)
+        super().__init__(*a)
+stream.Read = Counted
+from porechop_tpu_torch.parallel import multihost
+def dump():
+    with open('loadstats.rank%d' % multihost.rank(), 'w') as f:
+        f.write(str(len(built)))
+atexit.register(dump)"""
+
+
 def test_each_rank_materialises_only_its_block(inputs, tmp_path):
-    stats = tmp_path / 'loadstats'
     args = ['-i', str(inputs / 'reads.fastq'), '-o', 'out.fastq', '-v', '0',
             '--check_reads', '6', '--device', 'cpu']
-    _run_ranks(args, tmp_path / 'port',
-               env={'PORECHOP_TPU_LOAD_STATS': str(stats)})
-    got = []
-    for r in range(2):
-        with open('%s.rank%d' % (stats, r)) as f:
-            got.append(json.load(f))
-    # Rank 0: reads 0-19, whose head holds its check slice (0-2); rank 1:
-    # reads 20-39 and check reads 3-5 (which it parses but does not keep
-    # for phases 2 and 3).
-    assert got == [{'materialized': 20, 'total': 40},
-                   {'materialized': 23, 'total': 40}]
+    _, files = _run_ranks(args, tmp_path / 'port', prelude=_COUNT_READS)
+    # Rank 0 builds reads 0-19 and check reads 0-2, rank 1 reads 20-39 and
+    # check reads 3-5: 23 each, where one process builds all 40.
+    assert files['loadstats.rank0'] == files['loadstats.rank1'] == b'23'
 
 
 def test_two_ranks_without_a_card_raise(inputs, tmp_path):

@@ -1,8 +1,8 @@
 """The PyTorch port's --stream runs (porechop_tpu_torch.pipeline.stream, on
 the CPU) against the JAX package's in-memory runs
 (porechop_tpu.cli.main) on small synthetic inputs: output files, bins and
-transcripts must be byte-identical, memory must stay at a few chunks, and
-a failure inside the pump must surface and leave no thread behind."""
+transcripts must be byte-identical, memory must stay at one chunk, and
+a failure while writing must surface."""
 
 import contextlib
 import gc
@@ -10,7 +10,6 @@ import gzip
 import io
 import os
 import shutil
-import threading
 
 import pytest
 import torch
@@ -184,25 +183,32 @@ def test_streamed_albacore_directory_matches_jax(inputs, jax_run, tmp_path):
     assert got == want
 
 
-def test_serial_loop_matches_threaded(inputs, tmp_path, monkeypatch):
-    args = ['-i', '@reads.fastq', '-o', 'out.fastq', '-v', '1',
-            '--stream', '11']
-    threaded = _port(inputs, tmp_path / 'threaded', args)
-    monkeypatch.setenv('PORECHOP_TPU_NO_READAHEAD', '1')
-    serial = _port(inputs, tmp_path / 'serial', args)
-    assert serial == threaded
-
-
-def _stream_threads():
-    return [t for t in threading.enumerate()
-            if t.name.startswith('porechop-stream-')]
+@pytest.mark.parametrize('source', ['reads.fastq', 'albacore'])
+def test_record_ranges_partition_the_input(inputs, source):
+    """Consecutive record ranges (the multi-process blocks) give the whole
+    input in order, for a file and for a directory, with the directory's
+    Albacore barcode calls."""
+    path = str(inputs / source)
+    whole = [(r.name, r.seq, r.albacore_barcode_call)
+             for r in stream.iter_input_reads(path)]
+    n = stream.count_records(path)
+    assert len(whole) == n > 20
+    cuts = [0, 0, 7, n // 2, n - 1, n, n]
+    parts = [(r.name, r.seq, r.albacore_barcode_call)
+             for lo, hi in zip(cuts, cuts[1:])
+             for r in stream.iter_input_reads(path, (lo, hi))]
+    assert parts == whole
+    if source == 'albacore':
+        assert {c for _, _, c in whole} == {'BC01', 'BC02', 'none'}
 
 
 def test_writer_exception_surfaces(inputs, tmp_path, monkeypatch):
-    """A failure in the writer thread stops the run with that exception,
-    after both threads have ended."""
+    """A failure while a chunk is written stops the run with that
+    exception: no later chunk is computed."""
     written = []
+    computed = []
     real = model.Read.get_fastq
+    real_ends = stream.find_adapters_at_read_ends
 
     def failing(self, *a):
         written.append(self.name)
@@ -211,18 +217,21 @@ def test_writer_exception_surfaces(inputs, tmp_path, monkeypatch):
         return real(self, *a)
 
     monkeypatch.setattr(model.Read, 'get_fastq', failing)
+    monkeypatch.setattr(stream, 'find_adapters_at_read_ends',
+                        lambda reads, *a, **k: computed.append(len(reads))
+                        or real_ends(reads, *a, **k))
     with pytest.raises(OSError, match='disk full'):
         _port(inputs, tmp_path / 'w',
               ['-i', '@reads.fastq', '-o', 'out.fastq', '-v', '0',
                '--stream', '4'])
-    assert _stream_threads() == []
-    assert len(written) == 9          # the writer stopped at the failure
+    assert len(written) == 9          # the first read of the third chunk
+    assert computed == [4, 4, 4]
 
 
 def test_memory_stays_at_a_few_chunks(tmp_path, monkeypatch):
     """120 short reads in chunks of 5 (24 chunks): at every chunk's phase 2
-    the live Read objects are the 10 check reads plus the chunks in flight
-    (reader, two queues, compute and writer), never the whole input."""
+    the live Read objects are the 10 check reads and the chunk, never the
+    whole input."""
     write_fastq(str(tmp_path / 'reads.fastq'),
                 synth_reads(120, 300, seed=4, chimera_rate=0.3))
     live = []
@@ -238,7 +247,7 @@ def test_memory_stays_at_a_few_chunks(tmp_path, monkeypatch):
           ['-i', '@reads.fastq', '-o', 'out.fastq', '-v', '0',
            '--check_reads', '10', '--stream', '5'])
     assert len(live) == 24
-    assert max(live) <= 10 + 8 * 5
+    assert max(live) <= 10 + 5
 
 
 def test_streamed_run_without_a_card_raises(inputs, tmp_path, monkeypatch):
