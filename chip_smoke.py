@@ -12,19 +12,32 @@ porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - the long-read set (2,560 reads of 8-200 kb, read N50 40 kb), in memory
   and streamed (--stream 640);
 - 8,192 natively barcoded 10 kb reads (synth_barcoded), binned with -b,
-  in memory and streamed (--stream 2048).
+  in memory and streamed (--stream 4096).
 Each run must write the output FASTQ (or bins) and the stdout transcript
 of the JAX package (by SHA-256) and launch every kernel, and the long-read
 runs must cut at least one trace-bit launch into column chunks
 (kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
 torch.distributed ranks sharing the card (two `python -m
 porechop_tpu_torch` processes, in memory and streamed), whose merged
-output and rank 0's transcript must be the single-process run's.  Every
-run prints its wall, reads/s and peak device memory.  The last line of
-stdout is the result: {"ok": true, "device": {...}}; before it, one
-{"kernels": [...]} line.  Any failure raises and exits non-zero without a
-result line.  It writes only under build/ (kernels and the work
-directories under build/smoke/).
+output and rank 0's transcript must be the single-process run's.  Then
+the schemes the kernels refuse, which run on the host (the native Gotoh
+engine built with g++, the linear executable spec): the 10 kb input at
+-v 0 and -v 1 under --scoring_scheme 3,-6,-2,-5 and 16 reads of 1 kb at
+-v 1 under 2,-3,-3,-3, each against the JAX package's digests and with no
+kernel launch.  Last, lanes split over two device entries on the one card
+(--device cuda:0,cuda:0; also cuda:0,cuda:1 on a host with two cards):
+10 kb at -v 0/-v 1 and barcoded -b at -v 1 against the digests they
+already have, each kernel launched more often than on one entry (and on
+every named card), and every kernel held against its plain version at the
+shard shapes these runs launched.  On a host with several cards a run
+with no --device splits over all of them, so there the entry runs are
+held against the same runs on cuda:0 alone.  Every run prints its wall,
+reads/s and peak device memory per card, and the script its own wall
+before the result.  The last line of stdout is the result: {"ok": true,
+"device": {...}}; before it, one {"kernels": [...]} line.  Any failure
+raises and exits non-zero without a result line.  It writes only under
+build/ (kernels, the native engine and the work directories under
+build/smoke/).
 """
 
 import contextlib
@@ -100,13 +113,41 @@ BARCODED_STDOUT_SHA = {
     0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
     1: 'b9ef99e430ea8bf31fe2fcdaa9a497d6f7f060ae8cf3df7a0d9fdb0443add84c'}
 
+# The host route: the 10 kb input under a Gotoh scheme the kernels refuse
+# (gap_open > gap_ext), recorded the same way with
+#   PORECHOP_TPU_FORCE_HOST=1 python -m porechop_tpu -i reads.fastq \
+#       -o out_v1.fastq -v 1 -t 4 --scoring_scheme 3,-6,-2,-5 > stdout_v1.txt
+# (and -v 0); and a linear scheme on reads.fastq = write_fastq(synth_reads(
+# 16, 1000, seed=0)), its split pieces kept so that the output holds them:
+#   PORECHOP_TPU_FORCE_HOST=1 python -m porechop_tpu -i reads.fastq \
+#       -o out_v1.fastq -v 1 -t 4 --scoring_scheme 2,-3,-3,-3 \
+#       --min_split_read_size 100 > stdout_v1.txt
+GOTOH_FLAGS = ['--scoring_scheme', '3,-6,-2,-5']
+GOTOH_OUT_SHA = {
+    0: 'a109e5d836a93ecb3511d8ff9adf637df5d535f0a36abd4843c1fec3dda933a1',
+    1: 'a109e5d836a93ecb3511d8ff9adf637df5d535f0a36abd4843c1fec3dda933a1'}
+GOTOH_STDOUT_SHA = {
+    0: 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+    1: '4f3710a4f36742a99e698be0b9e86242df29fa3e571b1e8ad2a767ca42d114ef'}
+LINEAR_FLAGS = ['--scoring_scheme', '2,-3,-3,-3', '--min_split_read_size',
+                '100']
+LINEAR_READS_SHA = (
+    'ef95da1af73004718ad9b633840fa4c194c33e7748bf2f56083169eb7d81bf59')
+LINEAR_OUT_SHA = {
+    1: '85c608b01dd1158cb8e4b88e92f0a4774287b1adc704c463a17c0fdebe0ae482'}
+LINEAR_STDOUT_SHA = {
+    1: '8a6fe297431ac92973ee0c5bcd5916e91e38bc217c8bbc4a8f02cd51ef8e8ead'}
+
 # Each rank of the two-rank runs: `python -m porechop_tpu_torch`, then its
-# peak device memory and kernel launches as one JSON line on stderr.
+# peak device memory (on its card, cuda:rank % cards) and kernel launches
+# as one JSON line on stderr.
 RANK_CODE = """\
 import json, runpy, sys, torch
 runpy.run_module('porechop_tpu_torch', run_name='__main__', alter_sys=True)
 from porechop_tpu_torch.ops import kernels
-print(json.dumps({'peak_bytes': torch.cuda.max_memory_allocated(),
+print(json.dumps({'peak_bytes': max(
+    torch.cuda.max_memory_allocated(k)
+    for k in range(torch.cuda.device_count())),
                   'launches': kernels.LAUNCHES}), file=sys.stderr)
 """
 RANK_TIMEOUT = 300
@@ -215,15 +256,16 @@ def _bound(name, B, L, A, rl, al):
                                                              'operations')
 
 
-def check_kernels(kernels):
-    """Each kernel against its plain version at the main path's shapes."""
+def check_kernels(kernels, specs=KERNELS, seed=0):
+    """Each kernel of specs against its plain version at its shapes (by
+    default the main path's)."""
     results = {}
-    for n, (name, spec_) in enumerate(KERNELS.items()):
+    for n, (name, spec_) in enumerate(specs.items()):
         kern = getattr(kernels, name)
         plain = getattr(kernels, name + '_plain')
         rows = []
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
-            x = _inputs(B, L, A, seed=10 * n + m)
+            x = _inputs(B, L, A, seed=seed + 10 * n + m)
             got, want = kern(*x, *SCHEME), plain(*x, *SCHEME)
             torch.cuda.synchronize()
             if name == 'forward_score':
@@ -294,11 +336,20 @@ def _sha(path):
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def run_cli(cli, kernels, label, d, argv, size):
+def _cards():
+    return range(torch.cuda.device_count())
+
+
+def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     """One in-process run of the trimmer in directory d, on the card.
-    Returns (its launches, its stdout with d's path as <WORKDIR>)."""
+    With on_card, every kernel must launch, and on every device that
+    --device names in argv (without it, on every card: a single process
+    splits over all of them); without on_card, none may.  Returns
+    (its launches, its trace-bit launch shapes, its stdout with d's path
+    as <WORKDIR>)."""
     kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    for k in _cards():
+        torch.cuda.reset_peak_memory_stats(k)
     buf = io.StringIO()
     os.chdir(d)
     try:
@@ -311,16 +362,27 @@ def run_cli(cli, kernels, label, d, argv, size):
         os.chdir(ROOT)
     launches = dict(kernels.LAUNCHES)
     tiled = sorted(kernels.TILED_CALLS.items())
+    peaks = ', '.join('cuda:%d %.1f' % (k, torch.cuda.max_memory_allocated(k)
+                                         / 2 ** 20) for k in _cards())
     print('%s: %.2f s wall, %.1f reads/s, %.4g bases/s, peak device memory '
-          '%.1f MiB, launches %s' % (
-              label, wall, size[0] / wall, size[1] / wall,
-              torch.cuda.max_memory_allocated() / 2 ** 20, launches),
-          flush=True)
+          '%s MiB, launches %s, by device %s' % (
+              label, wall, size[0] / wall, size[1] / wall, peaks, launches,
+              dict(kernels.DEVICE_LAUNCHES)), flush=True)
     print('  forward_tiled launches by (lanes, L, A, chunks): %s'
           % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
-    idle = [k for k in KERNELS if launches[k] == 0]
-    if idle:
-        raise AssertionError('%s never launched %s' % (label, idle))
+    if on_card:
+        idle = [k for k in KERNELS if launches[k] == 0]
+        if idle:
+            raise AssertionError('%s never launched %s' % (label, idle))
+        named = ({'cuda:%d' % k for k in _cards()} if '--device' not in argv
+                 else set(argv[argv.index('--device') + 1].split(',')))
+        idle = named - {dev for _, dev in kernels.DEVICE_LAUNCHES}
+        if idle:
+            raise AssertionError('%s launched nothing on %s'
+                                 % (label, sorted(idle)))
+    elif any(launches.values()):
+        raise AssertionError('%s launched kernels on the host route: %s'
+                             % (label, launches))
     return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
 
 
@@ -333,14 +395,17 @@ def _check_text(label, d, text, want_sha):
 
 
 def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
-                  stream=None, split=False):
+                  stream=None, split=False, flags=(), verbosities=(0, 1),
+                  on_card=True):
     """One input (work/reads.fastq) through the trimming run to -o, on the
-    card, at -v 0 and -v 1, in memory or with --stream; with split, each
-    run must cut at least one trace-bit launch into column chunks.
-    Returns {run label: launches of that run}."""
+    card, at -v 0 and -v 1, in memory or with --stream, with flags added;
+    with split, each run must cut at least one trace-bit launch into
+    column chunks; without on_card, no run may launch a kernel.  Returns
+    {run label: launches of that run}."""
     mode = '' if stream is None else ' --stream %d' % stream
+    mode += ''.join(' ' + f for f in flags)
     launches = {}
-    for v in (0, 1):
+    for v in verbosities:
         label = '%s%s -v %d' % (what, mode, v)
         d = _fresh_dir(work, ('mem' if stream is None else 'stream')
                        + '_v%d' % v)
@@ -348,8 +413,9 @@ def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
         argv = ['-i', 'reads.fastq', '-o', out, '-v', str(v), '-t', '4']
         if stream is not None:
             argv += ['--stream', str(stream)]
-        launches[label], tiled, text = run_cli(cli, kernels, label, d, argv,
-                                               size)
+        launches[label], tiled, text = run_cli(cli, kernels, label, d,
+                                               argv + list(flags), size,
+                                               on_card)
         got_out = _sha(d / out)
         if got_out != out_sha[v]:
             raise AssertionError('%s output FASTQ differs from the JAX '
@@ -360,16 +426,20 @@ def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
     return launches
 
 
-def run_barcoded(cli, kernels, work, size, stream=None):
+def run_barcoded(cli, kernels, work, size, stream=None, flags=(),
+                 verbosities=(0, 1)):
     """The barcoded input binned with -b at -v 0 and -v 1, in memory or
-    with --stream; every run's bins against the JAX package's -v 1 bins."""
+    with --stream, with flags added; every run's bins against the JAX
+    package's -v 1 bins."""
     mode = '' if stream is None else ' --stream %d' % stream
+    mode += ''.join(' ' + f for f in flags)
     launches = {}
-    for v in (0, 1):
+    for v in verbosities:
         label = 'barcoded -b%s -v %d' % (mode, v)
         d = _fresh_dir(work, ('mem' if stream is None else 'stream')
                        + '_v%d' % v)
-        argv = ['-i', 'reads.fastq', '-b', 'bins', '-v', str(v), '-t', '4']
+        argv = ['-i', 'reads.fastq', '-b', 'bins', '-v', str(v), '-t',
+                '4'] + list(flags)
         if stream is not None:
             argv += ['--stream', str(stream)]
         launches[label], _, text = run_cli(cli, kernels, label, d, argv,
@@ -449,10 +519,85 @@ def run_two_ranks(work, size, stream=None):
     return {label: launches}
 
 
+@contextlib.contextmanager
+def recorded_shapes(kernels):
+    """Records the (lanes, L, A) of every call of each kernel wrapper made
+    inside the block, into {kernel: set of shapes}."""
+    shapes = {name: set() for name in KERNELS}
+    saved = {name: getattr(kernels, name) for name in KERNELS}
+
+    def recording(name, fn):
+        def call(reads, read_lens, adapters, *rest):
+            shapes[name].add((*reads.shape, adapters.shape[1]))
+            return fn(reads, read_lens, adapters, *rest)
+        return call
+    for name, fn in saved.items():
+        setattr(kernels, name, recording(name, fn))
+    try:
+        yield shapes
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def entry_runs(cli, kernels, flags, inputs):
+    """The 10 kb input at -v 0/-v 1 and the barcoded one with -b at -v 1,
+    in memory, with flags added: {run label: launches}."""
+    (work, size), (bc_work, bc_size) = inputs
+    runs = run_main_path(cli, kernels, '10 kb', work, size, OUT_SHA,
+                         STDOUT_SHA, flags=flags)
+    runs.update(run_barcoded(cli, kernels, bc_work, bc_size, flags=flags,
+                             verbosities=(1,)))
+    return runs
+
+
+def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
+    """entry_runs with their lanes split over the device entries (--device
+    entries): the digests they already have, every named device
+    launching (run_cli), and each kernel launched more often than in the
+    same run on one entry (one_entry: {run label: launches}, its labels
+    holding one_flag where these hold the --device flag), since each
+    planner launch becomes one per entry (the middle phase's replay does
+    not split).  Returns ({run label: launches}, {kernel: shapes of the
+    shards launched})."""
+    with recorded_shapes(kernels) as shapes:
+        runs = entry_runs(cli, kernels, ['--device', entries], inputs)
+    for label, launches in runs.items():
+        one = one_entry[label.replace(' --device ' + entries, one_flag)]
+        unsplit = [k for k in KERNELS if launches[k] <= one[k]]
+        if unsplit:
+            raise AssertionError('%s: %s launched no more often than on one '
+                                 'entry (%s vs %s)' % (label, unsplit,
+                                                       launches, one))
+    return runs, shapes
+
+
+def check_shard_shapes(kernels, shapes, timings, seed=100):
+    """Each kernel against its plain version at the shard shapes the entry
+    runs launched and check_kernels did not already hold, added to
+    timings."""
+    for name, seen in shapes.items():
+        known = {(r['lanes'], r['L'], r['A']) for r in timings[name]}
+        todo = sorted(seen - known)
+        print('%s: %d shard shapes to check' % (name, len(todo)), flush=True)
+        timings[name] += check_kernels(
+            kernels, {name: dict(KERNELS[name], shapes=[
+                ('launched by the entry runs', *shape) for shape in todo])},
+            seed=seed)[name]
+
+
+def one_card_runs(cli, kernels, inputs):
+    """On a host with several cards, where a run with no --device splits
+    over all of them: entry_runs on cuda:0 alone, the one entry that
+    run_entries holds the entry runs against."""
+    return entry_runs(cli, kernels, ['--device', 'cuda:0'], inputs)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from porechop_tpu_torch import cli
     from porechop_tpu_torch.ops import kernels
@@ -500,11 +645,41 @@ def main():
     bc_size = make_input('barcoded', bc_work,
                          lambda: synth_barcoded(8192, 10000, seed=0),
                          BARCODED_READS_SHA)
-    for stream in (None, 2048):
+    # Streamed in two chunks: four took 25 s a run on the H100.
+    for stream in (None, 4096):
         runs.update(run_barcoded(cli, kernels, bc_work, bc_size,
                                  stream=stream))
     for stream in (None, 2048):
         runs.update(run_two_ranks(work, size, stream=stream))
+
+    # Schemes the kernels refuse: on the host, no launch.
+    runs.update(run_main_path(cli, kernels, '10 kb', work, size,
+                              GOTOH_OUT_SHA, GOTOH_STDOUT_SHA,
+                              flags=GOTOH_FLAGS, on_card=False))
+    lin_work = WORK / 'linear'
+    lin_size = make_input('linear-scheme', lin_work,
+                          lambda: synth_reads(16, 1000, seed=0),
+                          LINEAR_READS_SHA)
+    runs.update(run_main_path(cli, kernels, '16 x 1 kb', lin_work, lin_size,
+                              LINEAR_OUT_SHA, LINEAR_STDOUT_SHA,
+                              flags=LINEAR_FLAGS, verbosities=(1,),
+                              on_card=False))
+
+    # Device entries: two on the one card, and two cards where there are
+    # (the runs above then split over every card, so the entries are held
+    # against runs on cuda:0 alone).
+    inputs = ((work, size), (bc_work, bc_size))
+    one, one_flag = runs, ''
+    entry_lists = ['cuda:0,cuda:0']
+    if torch.cuda.device_count() > 1:
+        entry_lists.append('cuda:0,cuda:1')
+        one, one_flag = one_card_runs(cli, kernels, inputs), ' --device cuda:0'
+        runs.update(one)
+    for entries in entry_lists:
+        split_runs, shapes = run_entries(cli, kernels, entries, inputs, one,
+                                         one_flag)
+        runs.update(split_runs)
+        check_shard_shapes(kernels, shapes, timings)
 
     line = []
     for name, spec_ in KERNELS.items():
@@ -520,6 +695,8 @@ def main():
             bound_ms=primary['bound_ms'], bound_by=primary['bound_by'],
             library_ms=None, shape=primary['what'],
             shapes=timings[name]))
+    print('chip_smoke: %.1f s from the start to the result'
+          % (time.perf_counter() - t_start), flush=True)
     print(json.dumps({'kernels': line}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,10 +6,14 @@ them runs on batched device launches instead of a host thread pool.  The
 --threads flag is accepted for compatibility; it controls output compression
 (pigz) parallelism, while alignment parallelism comes from batching.
 
-The alignments run on the CUDA card unless the caller asks for another
-device: main(argv, device=...) or the hidden --device flag.  A
-multi-process run (parallel/multihost.py) gives each rank the card
-cuda:(rank % cards) unless a device is named.
+The alignments of the schemes the kernels take run on the CUDA cards
+unless the caller names other devices: main(argv, device=...) or the
+hidden --device flag, each a device or a list of device entries whose
+shares of every launch's lanes split over them ('cuda:0,cuda:1',
+'cpu,cpu'; ops/dispatch.py).  With none named, a single process takes
+every local card (parallel/mesh.local_devices) and a multi-process run
+(parallel/multihost.py) gives each rank the card cuda:(rank % cards).
+Other schemes run on the host, whatever the device (ops/dispatch.py).
 """
 
 import argparse
@@ -18,10 +22,8 @@ import multiprocessing
 import os
 import sys
 
-import torch
-
-from .ops.dispatch import resolve_device
-from .parallel import multihost
+from .ops.dispatch import resolve_devices
+from .parallel import mesh, multihost
 from .pipeline import stream as stream_mod
 from .pipeline.output import output_reads
 from .pipeline.phases import (add_full_barcode_adapter_sets,
@@ -42,25 +44,27 @@ from .version import __version__
 
 
 def main(argv=None, device=None):
-    """Runs the trimmer.  device: where the alignments run (a torch device
-    or its name); default the --device flag, else the CUDA card."""
+    """Runs the trimmer.  device: where the alignments run (a torch device,
+    its name, or a list of device entries, as a list or comma-separated);
+    default the --device flag, else the local CUDA cards."""
     args = get_arguments(argv)
     _run_pipeline(args, device if device is not None else args.device)
+    multihost.finish()
 
 
 def _run_pipeline(args, device_name):
-    device = resolve_device(device_name)     # raises without a card
+    device = resolve_devices(device_name)    # raises without a card
     # The process group must exist before the streaming branch: with both
     # --stream and a coordinator set, each rank streams its own record
     # range.
     mh = multihost.maybe_init()
     if mh:
         if device_name is None:
-            device = multihost.rank_device()
+            device = [multihost.rank_device()]
         if multihost.rank() > 0:
             args.print_dest = open(os.devnull, 'w')
-    if device.type == 'cuda' and device.index is not None:
-        torch.cuda.set_device(device)        # the kernels launch on it
+    elif device_name is None:
+        device = mesh.local_devices()
     chunk_size = stream_mod.stream_chunk_size(args)
     if chunk_size:
         return _run_streaming_pipeline(args, chunk_size, device, mh)
@@ -352,7 +356,8 @@ def get_arguments(argv=None):
                                         'will not be outputted')
 
     # Hidden (help-suppressed, to keep --help byte-parity with the
-    # reference): the torch device the alignments run on (default: cuda).
+    # reference): the torch device the alignments run on, or device
+    # entries, comma-separated (default: the local CUDA cards).
     main_group.add_argument('--device', default=None, help=argparse.SUPPRESS)
     # Hidden: bounded-memory streaming with this many reads per chunk.
     # Equivalent to PORECHOP_TPU_STREAM=<n>.  See pipeline/stream.py.

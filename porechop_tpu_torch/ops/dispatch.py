@@ -6,11 +6,25 @@ number of dense, shape-bucketed device launches, then scatters results back
 
 Window lengths snap to a geometric ladder and adapters pad to their rung,
 so launch shapes are stable across runs; launches are chunked to bound
-device memory.  Every job runs on one device: the card unless the caller
-asks for the CPU.  Which execution a job takes (group max, per-lane stats,
-score only, or bitmap forward plus walk) depends on the mode and the shape,
-never on the device; the device only decides whether the kernels or their
-plain versions run.
+device memory.
+
+The route is chosen by the scoring scheme, never by the device:
+- gap_open < gap_ext (kernels.supports): the DP kernels, on the device
+  entries the caller names (default the card);
+- any other gap_open != gap_ext: the native Gotoh engine on the host
+  (porechop_tpu_torch/native), in one threaded batch call;
+- gap_open == gap_ext (linear): the executable spec (spec.align_linear),
+  one job at a time.
+Which kernel execution a job takes (group max, per-lane stats, score only,
+or bitmap forward plus walk) depends on the mode and the shape; the device
+only decides whether the kernels or their plain versions run.
+
+Device entries (resolve_devices): each launch's padded lanes split,
+contiguous and as even as possible, over the entries (parallel/mesh.py
+launch_shards), which may name one device more than once.  The tables are
+held once per (rung, device); every entry's forward is enqueued before any
+entry's walk, the walks step together (engine_v2.traceback_shards), and
+the shards are harvested in order, so the results are those of one entry.
 """
 
 from __future__ import annotations
@@ -18,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
+from ..parallel import mesh
 from . import engine_v2, kernels, spec
 
 # Window-length ladder: fine-grained at the small end (end windows), then
@@ -45,7 +61,29 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device is available; pass device="cpu" '
                            '(CLI: --device cpu) to run on the CPU')
+    if (dev.type == 'cuda' and dev.index is not None
+            and dev.index >= torch.cuda.device_count()):
+        raise RuntimeError('%s: this host has %d CUDA devices'
+                           % (dev, torch.cuda.device_count()))
     return dev
+
+
+def resolve_devices(device=None) -> list:
+    """The device entries launches split over: one device (a torch.device
+    or its name; default the card), a comma-separated list of names
+    ('cuda:0,cuda:1') or a sequence of either.  An entry may repeat
+    ('cpu,cpu', 'cuda:0,cuda:0'): each entry takes its share of every
+    launch's lanes all the same."""
+    if device is None or isinstance(device, torch.device):
+        names = [device]
+    elif isinstance(device, str):
+        names = device.split(',')
+    else:
+        names = list(device)
+    if not names:
+        raise ValueError('no device named')
+    return [resolve_device(n.strip() if isinstance(n, str) else n)
+            for n in names]
 
 
 def _noop_progress(idxs):
@@ -125,7 +163,8 @@ class AlignJobs:
     windows: list of np.int8 Dna5 code arrays (the read-side sequences).
     adapters: list of np.int8 code arrays.
     pairs: (P, 2) int array of (window_index, adapter_index).
-    device: where the jobs run (default: the CUDA card; see resolve_device).
+    device: the device entries the kernels' launches split over (default:
+    the CUDA card; see resolve_devices).
     """
 
     def __init__(self, windows, adapters, pairs, scoring=(3, -6, -5, -2),
@@ -134,7 +173,8 @@ class AlignJobs:
         self.adapters = adapters
         self.pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
         self.scoring = tuple(int(x) for x in scoring)
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self._group = None          # (group_ids, n_groups) in group-max mode
         self._gacc = None           # (n_groups, 2) int64 best (m, l)
         self._dev_grouped = None    # lanes already folded on device
@@ -287,7 +327,7 @@ class AlignJobs:
         if cand.any():
             idx = np.nonzero(cand)[0]
             sub = AlignJobs(self.windows, self.adapters, self.pairs[idx],
-                            self.scoring, device=self.device)
+                            self.scoring, device=self.devices)
             sres = sub.run_stats()          # exact, no prefilter
             matches[idx] = sres['matches']
             full_len[idx] = sres['full_len']
@@ -328,10 +368,9 @@ class AlignJobs:
         if todo.size == 0:
             return self._package(out)
         if not kernels.supports(self.scoring):
-            raise NotImplementedError(
-                'scoring scheme %s: the kernels need gap_open < gap_ext '
-                '(a host engine for other schemes is not ported yet)'
-                % (self.scoring,))
+            self._run_host(todo, out)
+            progress(todo)
+            return self._package(out)
 
         # Bucket by (window rung, adapter rung): adapters pad to the rung,
         # not the batch max, so launch shapes are stable across runs.
@@ -375,7 +414,7 @@ class AlignJobs:
 
         # Enqueue every launch before touching results: CUDA launches are
         # asynchronous, so they run back to back while the host moves on.
-        tables = {'w': {}, 'a': {}}
+        tables = {}
         pending = [(chunk, self._launch_chunk(chunk, lb, amax, tables,
                                               rung_w, rung_a))
                    for lb, amax, chunk in device_work]
@@ -408,103 +447,139 @@ class AlignJobs:
         for lo in range(0, len(idxs), per_launch):
             yield idxs[lo:lo + per_launch]
 
-    def _table(self, seqs, idxs, width):
-        """Deduplicated table of the sequences `idxs` reference, plus one
-        dummy row (a single 'A') that pad lanes use: (rows, lens) on the
-        device, the host lens, and the map from sequence index to row."""
-        seen = np.zeros(len(seqs), dtype=bool)
-        seen[idxs] = True
-        uniq = np.nonzero(seen)[0]
-        mat = np.full((len(uniq) + 1, width), 4, dtype=np.int8)
-        lens = np.ones(len(uniq) + 1, dtype=np.int32)
-        for r, k in enumerate(uniq):
-            s = seqs[k]
-            mat[r, :len(s)] = s
-            lens[r] = len(s)
-        mat[len(uniq), 0] = 0
-        row_of = np.full(len(seqs), len(uniq), dtype=np.int64)
-        row_of[uniq] = np.arange(len(uniq), dtype=np.int64)
-        dev = self.device
-        return (torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
-                lens, row_of)
+    def _run_host(self, todo, out):
+        """The jobs `todo` under a scheme the kernels refuse, on the host
+        (porechop_tpu/ops/dispatch.py:891-989): Gotoh schemes on the
+        native engine in one threaded batch call, linear ones through the
+        executable spec one job at a time.  Full results, except that the
+        native engine's score-only pass (a score-only mode) fills only
+        raw_score and the degenerate marker."""
+        pairs = self.pairs[todo]
+        _, _, gap_open, gap_ext = self.scoring
+        if gap_open != gap_ext:
+            res = native.align_batch(
+                self.windows, self.adapters, pairs, self.scoring,
+                entry=('align_simd_scores' if self._score_only
+                       else 'align_simd_batch'))
+            if self._score_only:
+                out['raw_score'][todo] = res[:, 4]
+                out['read_start'][todo] = res[:, 0]
+                self._score_lanes[todo] = True
+                return
+            for c, f in enumerate(native.FIELDS):
+                out[f][todo] = res[:, c]
+            return
+        for k, (w, a) in zip(todo, pairs):
+            r = spec.align_linear(self.windows[w], self.adapters[a],
+                                  self.scoring)
+            for f in native.FIELDS:
+                out[f][k] = getattr(r, f)
+
+    def _table(self, tables, side, rung, chunks):
+        """The deduplicated table of the sequences that the rung's chunks
+        reference, plus one dummy row (a single 'A') that pad lanes use:
+        (rows, lens) as host tensors, the host lens, and the map from
+        sequence index to row.  Built once per rung."""
+        seqs, col = ((self.windows, 0) if side == 'w'
+                     else (self.adapters, 1))
+        if (side, rung) not in tables:
+            seen = np.zeros(len(seqs), dtype=bool)
+            seen[self.pairs[np.concatenate(chunks), col]] = True
+            uniq = np.nonzero(seen)[0]
+            mat = np.full((len(uniq) + 1, rung), 4, dtype=np.int8)
+            lens = np.ones(len(uniq) + 1, dtype=np.int32)
+            for r, k in enumerate(uniq):
+                s = seqs[k]
+                mat[r, :len(s)] = s
+                lens[r] = len(s)
+            mat[len(uniq), 0] = 0
+            row_of = np.full(len(seqs), len(uniq), dtype=np.int64)
+            row_of[uniq] = np.arange(len(uniq), dtype=np.int64)
+            tables[(side, rung)] = (torch.from_numpy(mat),
+                                    torch.from_numpy(lens), lens, row_of)
+        return tables[(side, rung)]
 
     def _launch_chunk(self, chunk, lb, amax, tables, rung_w, rung_a):
         """Enqueues one chunk: the dedup'd window and adapter tables upload
-        once per rung (shared by every chunk of the rung) and each lane is a
-        pair of row indices gathered on the device.  Returns a handle for
-        _harvest."""
-        if lb not in tables['w']:
-            tables['w'][lb] = self._table(
-                self.windows, self.pairs[np.concatenate(rung_w[lb]), 0], lb)
-        if amax not in tables['a']:
-            tables['a'][amax] = self._table(
-                self.adapters, self.pairs[np.concatenate(rung_a[amax]), 1],
-                amax)
-        wtab, wlen, wlen_host, wmap = tables['w'][lb]
-        atab, alen, alen_host, amap = tables['a'][amax]
+        once per rung and device (shared by every chunk of the rung) and
+        each lane is a pair of row indices gathered on the device.  The
+        chunk's padded lanes split over the device entries
+        (mesh.launch_shards).  Returns (kind, per-shard handles, the lanes'
+        window and adapter lengths) for _harvest."""
         B = len(chunk)
         Bp = _bucket_lanes(B)
+        if self._is_groupmax_rung(lb):
+            kind = 'gm'
+        elif not self._is_stats_rung(lb):
+            kind = 'res'
+        elif self._gscore is not None:
+            kind = 'gsc'
+        else:
+            kind = 'sc' if self._score_only else 'st'
+        wtab, wlen, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb])
+        atab, alen, alen_host, amap = self._table(tables, 'a', amax,
+                                                  rung_a[amax])
+        # Lanes past B are pad lanes, on the dummy rows.
         w_idx = np.full(Bp, wtab.shape[0] - 1, dtype=np.int64)
         a_idx = np.full(Bp, atab.shape[0] - 1, dtype=np.int64)
         w_idx[:B] = wmap[self.pairs[chunk, 0]]
         a_idx[:B] = amap[self.pairs[chunk, 1]]
-        dev = self.device
-        tabs = (wtab, wlen, atab, alen, torch.from_numpy(w_idx).to(dev),
-                torch.from_numpy(a_idx).to(dev))
-
-        if self._is_groupmax_rung(lb):
-            group_ids, n_groups = self._group
+        groups = None
+        if kind in ('gm', 'gsc'):
+            gids, n_groups = self._group if kind == 'gm' else self._gscore
             g_idx = np.full(Bp, n_groups, dtype=np.int64)  # pad -> dummy
-            g_idx[:B] = group_ids[chunk]
-            return ('gm', engine_v2.fused_gather_groupmax(
-                *tabs, torch.from_numpy(g_idx).to(dev), n_groups,
-                self.scoring))
-        if self._is_stats_rung(lb):
-            if self._gscore is not None:
-                gids, n_groups = self._gscore
-                g_idx = np.full(Bp, n_groups, dtype=np.int64)
-                g_idx[:B] = gids[chunk]
-                return ('gsc', engine_v2.fused_gather_group_scoremax(
-                    *tabs, torch.from_numpy(g_idx).to(dev), n_groups,
-                    self.scoring))
-            if self._score_only:
-                return ('sc', engine_v2.fused_gather_scores(*tabs,
-                                                            self.scoring))
-            return ('st', engine_v2.fused_gather_stats(*tabs, self.scoring))
-        walk, best, ci, cj = engine_v2.fused_gather(*tabs, self.scoring)
-        return ('res', (walk, best, ci, cj, wlen_host[w_idx],
-                        alen_host[a_idx]))
+            g_idx[:B] = gids[chunk]
+            groups = (g_idx, n_groups)
+
+        def on(dev):
+            for key, host in ((('w', lb, dev), (wtab, wlen)),
+                              (('a', amax, dev), (atab, alen))):
+                if key not in tables:
+                    tables[key] = tuple(t.to(dev) for t in host)
+            return tables[('w', lb, dev)] + tables[('a', amax, dev)]
+        shards = mesh.launch_shards(kind, self.devices, on, w_idx, a_idx,
+                                    self.scoring, groups)
+        return kind, shards, (wlen_host[w_idx[:B]], alen_host[a_idx[:B]])
 
     def _harvest(self, chunk, handle, out):
-        """Blocks on a _launch_chunk handle and scatters results."""
-        kind, h = handle
+        """Blocks on a _launch_chunk handle and scatters results, shard by
+        shard in lane order."""
+        kind, shards, lens = handle
         B = len(chunk)
+
+        def to_np(t):
+            return t.cpu().numpy()
+
+        def cat(k, host=_host):
+            return np.concatenate([host(h[k]) for h in shards])[:B]
+
         if kind == 'gm':
-            gm, gl = _host(h[0]), _host(h[1])
+            gm, gl = engine_v2.merge_groupmax(
+                [(_host(h[0]), _host(h[1])) for h in shards])
             better = gm * self._gacc[:, 1] > self._gacc[:, 0] * gl
             self._gacc[better, 0] = gm[better]
             self._gacc[better, 1] = gl[better]
             self._dev_grouped[chunk] = True
             return
-        if kind == 'st':
-            out['matches'][chunk] = _host(h[0])[:B]
-            out['full_len'][chunk] = _host(h[1])[:B]
-            self._stats_failed[chunk] = ~h[2].cpu().numpy()[:B]
-            return
-        if kind == 'sc':
-            out['raw_score'][chunk] = _host(h[0])[:B]
-            self._stats_failed[chunk] = ~h[1].cpu().numpy()[:B]
-            self._score_lanes[chunk] = True
-            return
         if kind == 'gsc':
-            np.maximum(self._gsacc, _host(h), out=self._gsacc)
+            for h in shards:
+                np.maximum(self._gsacc, _host(h), out=self._gsacc)
             self._dev_grouped[chunk] = True
             return
-        walk, best, ci, cj, rl, al = h
-        res = engine_v2.finish_v2(walk.cpu().numpy(), best.cpu().numpy(),
-                                  ci.cpu().numpy(), cj.cpu().numpy(), rl, al)
+        if kind == 'st':
+            out['matches'][chunk] = cat(0)
+            out['full_len'][chunk] = cat(1)
+            self._stats_failed[chunk] = ~cat(2, to_np)
+            return
+        if kind == 'sc':
+            out['raw_score'][chunk] = cat(0)
+            self._stats_failed[chunk] = ~cat(1, to_np)
+            self._score_lanes[chunk] = True
+            return
+        # Walks (walk, best, cell_i, cell_j).
+        res = engine_v2.finish_v2(*(cat(k, to_np) for k in range(4)), *lens)
         for f in out:
-            out[f][chunk] = res[f][:B]
+            out[f][chunk] = res[f]
 
     def _package(self, out):
         if self._group is not None or self._stats_only or self._score_only:

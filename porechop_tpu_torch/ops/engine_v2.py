@@ -33,27 +33,62 @@ def traceback(bits, cell_i, cell_j, vflag, hflag):
     holding a read / adapter base, -1 when none), s_ar_rev (adapter bases
     before the last read column), s_ra_rev (read bases before the last
     adapter column)."""
-    A, B, L1 = bits.shape
-    dev = bits.device
-    flat = bits.reshape(-1)
-    lane_off = torch.arange(B, dtype=torch.int64, device=dev) * L1
-    plane = B * L1
-    i = cell_i.to(torch.int64)
-    j = cell_j.to(torch.int64)
-    inside = (i > 0) & (j > 0)
-    zero = torch.zeros(B, dtype=torch.int64, device=dev)
-    mode = torch.where(vflag & inside, 1, torch.where(hflag & inside, 2, 0))
-    t = zero.clone()
-    matches = zero.clone()
-    rd_tmin, rd_tmax, ad_tmin, ad_tmax = (zero - 1 for _ in range(4))
-    s_ar_rev = zero.clone()
-    s_ra_rev = zero.clone()
+    return traceback_shards([(bits, cell_i, cell_j, vflag, hflag)])[0]
 
-    while bool(((i > 0) & (j > 0)).any()):
-        for _ in range(TB_UNROLL):
+
+def traceback_shards(shards):
+    """traceback of several launches at once, one per device entry
+    (shards: a list of traceback's arguments), each walked on its own
+    device.  Every launch still walking takes TB_UNROLL moves before any
+    is checked, so the check that waits on one card leaves the others
+    working.  Returns the list of (B, 10) aggregates."""
+    walks = [_Walk(*shard) for shard in shards]
+    live = [w for w in walks if w.walking()]
+    while live:
+        for w in live:
+            w.steps(TB_UNROLL)
+        live = [w for w in live if w.walking()]
+    return [w.result() for w in walks]
+
+
+class _Walk:
+    """The walker state of one launch's lanes (tensors on its device)."""
+
+    def __init__(self, bits, cell_i, cell_j, vflag, hflag):
+        A, B, L1 = bits.shape
+        dev = bits.device
+        self.flat = bits.reshape(-1)
+        self.lane_off = torch.arange(B, dtype=torch.int64, device=dev) * L1
+        self.plane = B * L1
+        self.i = cell_i.to(torch.int64)
+        self.j = cell_j.to(torch.int64)
+        inside = (self.i > 0) & (self.j > 0)
+        zero = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.mode = torch.where(vflag & inside, 1,
+                                torch.where(hflag & inside, 2, 0))
+        self.t = zero.clone()
+        self.matches = zero.clone()
+        self.rd_tmin, self.rd_tmax, self.ad_tmin, self.ad_tmax = (
+            zero - 1 for _ in range(4))
+        self.s_ar_rev = zero.clone()
+        self.s_ra_rev = zero.clone()
+
+    def walking(self) -> bool:
+        """Whether any lane is still walking (waits for the device)."""
+        return bool(((self.i > 0) & (self.j > 0)).any())
+
+    def steps(self, n):
+        """Enqueues n moves of every lane; finished lanes stay put."""
+        i, j, mode, t = self.i, self.j, self.mode, self.t
+        matches = self.matches
+        rd_tmin, rd_tmax = self.rd_tmin, self.rd_tmax
+        ad_tmin, ad_tmax = self.ad_tmin, self.ad_tmax
+        s_ar_rev, s_ra_rev = self.s_ar_rev, self.s_ra_rev
+        for _ in range(n):
             act = (i > 0) & (j > 0)
             # Finished lanes read a harmless in-bounds cell; act masks them.
-            tv = flat[(i - 1).clamp_min(0) * plane + lane_off + j]
+            tv = self.flat[(i - 1).clamp_min(0) * self.plane + self.lane_off
+                           + j]
             hx = (tv & B_HEXT) != 0
             vx = (tv & B_VEXT) != 0
             dg = (tv & B_DIAG) != 0
@@ -86,8 +121,17 @@ def traceback(bits, cell_i, cell_j, vflag, hflag):
             j = j - (act & (go_diag | go_hori)).long()
             mode = torch.where(act, new_mode, mode)
             t = t + act
-    return torch.stack([i, j, t, matches, rd_tmin, rd_tmax, ad_tmin,
-                        ad_tmax, s_ar_rev, s_ra_rev], dim=1).to(torch.int32)
+        self.i, self.j, self.mode, self.t = i, j, mode, t
+        self.matches = matches
+        self.rd_tmin, self.rd_tmax = rd_tmin, rd_tmax
+        self.ad_tmin, self.ad_tmax = ad_tmin, ad_tmax
+        self.s_ar_rev, self.s_ra_rev = s_ar_rev, s_ra_rev
+
+    def result(self):
+        return torch.stack([self.i, self.j, self.t, self.matches,
+                            self.rd_tmin, self.rd_tmax, self.ad_tmin,
+                            self.ad_tmax, self.s_ar_rev, self.s_ra_rev],
+                           dim=1).to(torch.int32)
 
 
 def finish_v2(walk, best_sc, cell_i, cell_j, read_lens, adapter_lens):
@@ -196,6 +240,25 @@ def finish_stats_device(walk, best_sc, cell_i, cell_j, rl, la):
     return matches, full_len, failed
 
 
+def merge_groupmax(parts):
+    """The per-group (matches, full_len) that groupmax_reduce gives over
+    the lanes of several launches, from each launch's own result (parts:
+    a list of (gm, gl) pairs).  Per group the higher identity fraction
+    wins, and between equal fractions the pair with more matches, then the
+    longer one: the lane groupmax_reduce elects.  A group no lane of a
+    launch reached is (0, 0) there and never wins.  Host int64 arrays."""
+    gm, gl = (np.asarray(x).astype(np.int64) for x in parts[0])
+    for m, ln in parts[1:]:
+        m = np.asarray(m).astype(np.int64)
+        ln = np.asarray(ln).astype(np.int64)
+        lhs, rhs = m * gl, gm * ln
+        better = (ln > 0) & ((gl == 0) | (lhs > rhs) | (
+            (lhs == rhs) & ((m > gm) | ((m == gm) & (ln > gl)))))
+        gm = np.where(better, m, gm)
+        gl = np.where(better, ln, gl)
+    return gm, gl
+
+
 def groupmax_reduce(matches, full_len, ok, g_idx, n_groups):
     """Per-group best (matches, full_len) under the exact identity-fraction
     order (porechop_tpu/ops/engine_v2._groupmax_reduce).  The fraction key
@@ -247,14 +310,12 @@ def score_fwd(reads, rl, adps, al, scoring):
     return best, (rl > 0) & (al > 0)
 
 
-def fused_gather(wtab, wlens, atab, alens, w_idx, a_idx, scoring):
-    """Gather + trace-bit forward + walk: (walk, best, cell_i, cell_j).
-    One forward for every window length (porechop_tpu/ops/engine_v2
-    _pallas_mode's modes 1 and 2)."""
+def gather_forward(wtab, wlens, atab, alens, w_idx, a_idx, scoring):
+    """Gather + trace-bit forward: (bits, best, cell_i, cell_j, vflag,
+    hflag), to be walked by traceback.  One forward for every window
+    length (porechop_tpu/ops/engine_v2 _pallas_mode's modes 1 and 2)."""
     reads, rl, adps, al = _gather(wtab, wlens, atab, alens, w_idx, a_idx)
-    bits, best, ci, cj, vf, hf = kernels.forward_tiled(reads, rl, adps, al,
-                                                       *scoring)
-    return traceback(bits, ci, cj, vf, hf), best, ci, cj
+    return kernels.forward_tiled(reads, rl, adps, al, *scoring)
 
 
 def fused_gather_stats(wtab, wlens, atab, alens, w_idx, a_idx, scoring):

@@ -24,8 +24,9 @@ that it fills the card (split_plan, card_warps, csrc/dp_tiled.cu), and a
 small second kernel there folds the chunks' scouts.
 
 A wrapper runs its plain version when the tensors it is given lie on the
-CPU, launches its kernel when they lie on a CUDA device, and raises for
-anything else.  Kernels are built from the package's csrc/ with nvcc at
+CPU, launches its kernel on the CUDA device they lie on (under that
+device's context and on its current stream), and raises for anything
+else.  Kernels are built from the package's csrc/ with nvcc at
 first use (build()) into build/kernels/ beside the package, and bound with
 ctypes; a build or launch failure raises.
 
@@ -40,6 +41,7 @@ the JAX kernels'; trace bits off that path may differ from theirs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import os
@@ -73,6 +75,9 @@ PART_INTS = 5              # ints per (chunk, lane) partial scout (csrc/)
 # Launches of each kernel since the counter was last reset.  A wrapper adds
 # one where it launches its kernel, and nowhere else.
 LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0}
+# The same by (kernel, device), e.g. ('forward_tiled', 'cuda:1'), reset with
+# LAUNCHES.
+DEVICE_LAUNCHES = collections.Counter()
 # forward_tiled launches by (lanes, L, A, chunks per lane), reset with
 # LAUNCHES.
 TILED_CALLS = collections.Counter()
@@ -95,6 +100,7 @@ def supports(scoring) -> bool:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    DEVICE_LAUNCHES.clear()
     TILED_CALLS.clear()
 
 
@@ -216,18 +222,27 @@ def bind(path, name: str):
     return fn
 
 
+def _on(device):
+    """The CUDA device context of `device` (a launch and a query run on
+    the current device); none for a device that is not a card."""
+    if isinstance(device, int) or getattr(device, 'type', None) == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 @functools.cache
 def card_warps(A: int, device_index=None) -> int:
     """The one-warp blocks of forward_tiled's kernel for adapter width A
-    that the card holds at once, as its runtime reports them (the
-    occupancy at the kernel's shared memory times the SMs), read once per
-    adapter width and device.  The kernels run on the current device."""
+    that card `device_index` (None: the current device) holds at once, as
+    its runtime reports them (the occupancy at the kernel's shared memory
+    times the SMs), read once per adapter width and device."""
     if A > MAX_A:
         raise NotImplementedError(
             'forward_tiled: adapters longer than %d bp are not supported by '
             'the CUDA kernel' % MAX_A)
     n = ctypes.c_int(0)
-    rc = _lib('forward_tiled').warps(A, ctypes.byref(n))
+    with _on(device_index):
+        rc = _lib('forward_tiled').warps(A, ctypes.byref(n))
     if rc != 0 or n.value <= 0:
         raise RuntimeError('forward_tiled: occupancy query failed with code '
                            '%d (%d warps)' % (rc, n.value))
@@ -240,14 +255,16 @@ def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
             '%s: adapters longer than %d bp are not supported by the CUDA '
             'kernel' % (name, MAX_A))
     fn = _lib(name)
-    stream = torch.cuda.current_stream(reads.device).cuda_stream
-    rc = fn(reads.data_ptr(), read_lens.data_ptr(), adapters.data_ptr(),
-            adapter_lens.data_ptr(), *ints,
-            *(None if o is None else o.data_ptr() for o in outs), stream)
+    with _on(reads.device):
+        stream = torch.cuda.current_stream(reads.device).cuda_stream
+        rc = fn(reads.data_ptr(), read_lens.data_ptr(), adapters.data_ptr(),
+                adapter_lens.data_ptr(), *ints,
+                *(None if o is None else o.data_ptr() for o in outs), stream)
     if rc != 0:
         raise RuntimeError('%s: kernel launch failed with code %d' % (name,
                                                                       rc))
     LAUNCHES[name] += 1
+    DEVICE_LAUNCHES[(name, str(reads.device))] += 1
 
 
 def _check(reads, read_lens, adapters, adapter_lens):

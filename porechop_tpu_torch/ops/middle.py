@@ -55,6 +55,9 @@ class ReplayRunner:
 
     reads: list of np.int8 code arrays (round-0 first hit already masked).
     adapters: list of np.int8 code arrays (the phase's adapter order).
+    device: the device (or device entries: it runs on the first, as the
+    JAX package's replay does not shard).  A device-only runner: the
+    middle phase replays schemes the kernels refuse in host rounds.
     """
 
     def __init__(self, reads, adapters, scoring=(3, -6, -5, -2),
@@ -63,7 +66,7 @@ class ReplayRunner:
             raise NotImplementedError('scoring scheme %s: the kernels need '
                                       'gap_open < gap_ext' % (scoring,))
         self.scoring = tuple(int(x) for x in scoring)
-        self.device = dispatch.resolve_device(device)
+        self.device = dispatch.resolve_devices(device)[0]
         B = len(reads)
         self.B = B
         max_alen = max((len(a) for a in adapters), default=1)

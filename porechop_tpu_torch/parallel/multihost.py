@@ -116,6 +116,17 @@ def sync():
     dist.barrier()
 
 
+def finish():
+    """Ends a multi-process run (no-op otherwise): a last barrier, then the
+    process group's teardown, so that no rank exits while another still
+    talks to it and gloo's threads stop before the interpreter does (a
+    rank left to tear the group down at exit was seen to abort, under
+    load, in `terminate called without an active exception`)."""
+    if enabled():
+        sync()
+        dist.destroy_process_group()
+
+
 def _allgather(local: np.ndarray) -> np.ndarray:
     """Every rank's equally-shaped `local`, stacked in rank order:
     (world, *local.shape)."""

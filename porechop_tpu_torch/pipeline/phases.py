@@ -7,7 +7,8 @@ AlignJobs batch (ops/dispatch.py), launches it on the device, and then
 applies the reference's decision logic on the host in the exact same
 per-read, per-adapter order, so all outputs (including verbosity text and
 progress lines) are byte-identical to a single-threaded reference run.
-Every phase takes the `device` its launches run on (default: the card).
+Every phase takes the `device` its launches run on (default: the card;
+a list of device entries splits each launch's lanes, ops/dispatch.py).
 """
 
 from __future__ import annotations
@@ -645,6 +646,27 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
         rs, re = coords[ri]
         apply_hit(ri, ai, rs, re, fp0[ri, ai])
         pend.append((ri, ai))           # re-align same adapter, now masked
+
+    while pend and not supports(scoring_scheme_vals):
+        # Schemes the kernels refuse replay in host rounds
+        # (porechop_tpu/pipeline/phases.py:651-666): each round aligns every
+        # in-flight read's next job through AlignJobs, whose route the
+        # scheme chooses; the decisions are the device loop's below.
+        res = AlignJobs([masked[ri] for ri, _ in pend], a_code_list,
+                        np.column_stack([
+                            np.arange(len(pend), dtype=np.int64),
+                            np.array([ai for _, ai in pend], np.int64)]),
+                        scoring_scheme_vals, device=device).run()
+        nxt = []
+        for n, (ri, ai) in enumerate(pend):
+            full_score = res['full_pct'][n]
+            if full_score >= middle_threshold:
+                apply_hit(ri, ai, int(res['read_start'][n]),
+                          int(res['read_end_excl'][n]), full_score)
+                nxt.append((ri, ai))
+            elif ai + 1 < n_ad:
+                nxt.append((ri, ai + 1))
+        pend = nxt
 
     if pend:
         # Device-resident replay (ops/middle.py): the replay set's masked

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from porechop_tpu_torch.ops import kernels
+from porechop_tpu_torch.ops import dispatch, kernels
 
 SCHEME = (3, -6, -5, -2)
 # Warps of the trace-bit kernel an H100 SXM holds at once, by AMAX: 132 SMs
@@ -32,6 +32,51 @@ def one_torch_thread():
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 FIELDS = ('read_start', 'read_end', 'adapter_start', 'adapter_end',
           'raw_score', 'matches', 'aligned_len', 'full_len')
+
+
+def align_jobs(seed=4):
+    """AlignJobs inputs (windows, adapters, pairs, groups, n_groups):
+    windows on three ladder rungs (150, 1024 and 2048: the last two past
+    the group max's rung guard), an empty window, adapters on three
+    adapter rungs, about a third of the windows carrying a mutated copy of
+    an adapter."""
+    rng = np.random.default_rng(seed)
+    adapters = [rng.integers(0, 4, n).astype(np.int8)
+                for n in (28, 22, 37, 24, 50)]
+    windows = []
+    for k in range(36):
+        n = (150, 150, 900, 1800)[k % 4]
+        w = rng.integers(0, 5 if k % 5 == 0 else 4, n).astype(np.int8)
+        if k % 3 == 0:
+            a = adapters[k % len(adapters)].copy()
+            a[rng.integers(0, len(a), 2)] = rng.integers(0, 4, 2)
+            pos = int(rng.integers(0, n - len(a)))
+            w[pos:pos + len(a)] = a
+        windows.append(w)
+    windows.append(np.zeros(0, np.int8))
+    pairs = np.array([(w, a) for w in range(len(windows))
+                      for a in range(len(adapters))], np.int64)
+    groups = (pairs[:, 0] % 3) * len(adapters) + pairs[:, 1]
+    return windows, adapters, pairs, groups, 3 * len(adapters)
+
+
+def run_mode(mode, jobs, device):
+    """One AlignJobs mode ('run', 'run_stats', 'run_stats_prefilter',
+    'run_group_max', 'run_group_score_max') on align_jobs' jobs; a dict
+    of host arrays (the group score max as {'': array})."""
+    windows, adapters, pairs, groups, n_groups = jobs
+    j = dispatch.AlignJobs(windows, adapters, pairs, device=device)
+    if mode == 'run_stats_prefilter':
+        return j.run_stats(prefilter=90.0)
+    if mode.startswith('run_group'):
+        res = getattr(j, mode)(groups, n_groups)
+    else:
+        res = getattr(j, mode)()
+    return res if isinstance(res, dict) else {'': res}
+
+
+MODES = ('run', 'run_stats', 'run_stats_prefilter', 'run_group_max',
+         'run_group_score_max')
 
 
 def dp_batch(seed, B, L, A):

@@ -19,10 +19,14 @@ pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 @pytest.fixture(scope='module')
 def reads_fastq(tmp_path_factory):
-    """48 synthetic 2 kb reads, three in ten chimeric (middle adapters)."""
+    """48 synthetic 2 kb reads, three in ten chimeric (middle adapters),
+    as reads.fastq and the same records as reads.fasta beside it."""
     d = tmp_path_factory.mktemp('torch_cli')
     path = str(d / 'reads.fastq')
-    write_fastq(path, synth_reads(48, 2000, seed=3, chimera_rate=0.3))
+    reads = synth_reads(48, 2000, seed=3, chimera_rate=0.3)
+    write_fastq(path, reads)
+    with open(d / 'reads.fasta', 'w') as f:
+        f.writelines('>%s\n%s\n' % (name, seq) for name, seq, _ in reads)
     return path
 
 
@@ -46,16 +50,23 @@ def _run(main, workdir, args, **kw):
     (['-v', '1'], 'out.fastq'),
     (['-v', '1', '--discard_middle'], 'out.fastq'),
     (['-v', '1', '--middle_threshold', '85'], 'out.fasta'),
+    (['-v', '1', '--no_split'], 'out.fastq'),
+    (['-v', '1', '--check_reads', '12'], 'out.fastq'),
+    (['-v', '1', '--end_size', '100'], 'out.fastq'),
+    (['-v', '1', '-i', '../reads.fasta'], 'out.fasta'),
 ])
 def test_cli_output_is_byte_identical(reads_fastq, tmp_path, flags,
                                       out_name):
     os.makedirs(tmp_path / 'jax')
     os.makedirs(tmp_path / 'torch')
     os.symlink(reads_fastq, tmp_path / 'reads.fastq')
+    os.symlink(os.path.splitext(reads_fastq)[0] + '.fasta',
+               tmp_path / 'reads.fasta')
+    # A later -i names the input (argparse keeps the last one).
     args = ['-i', '../reads.fastq', '-o', out_name, '-t', '4'] + flags
     want = _run(jax_cli.main, tmp_path / 'jax', args)
     got = _run(torch_cli.main, tmp_path / 'torch', args, device='cpu')
-    if '-v' in flags and flags[flags.index('-v') + 1] == '1':
+    if flags[1] == '1' and '--no_split' not in flags:
         assert 'Splitting' in want[0] or 'Discarding' in want[0]
     assert got[1] == want[1]
     assert got[0].replace(str(tmp_path / 'torch'), '<dir>') == \

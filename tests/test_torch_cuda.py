@@ -9,19 +9,22 @@ one run them with
 (--noconftest: tests/conftest.py sets up jax, which this file does not
 use).  """
 
+import collections
 import contextlib
 import io
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from porechop_tpu_torch import cli
-from porechop_tpu_torch.ops import kernels
+from porechop_tpu_torch.ops import dispatch, kernels
 from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
 
-from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, dp_batch,
-                               gap_run_batch, plan_warm, plant, split_batch,
+from .test_torch_cases import (H100_WARPS, MODES, SCHEME, align_jobs,
+                               call_tiled, dp_batch, gap_run_batch,
+                               plan_warm, plant, run_mode, split_batch,
                                tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.cuda
@@ -201,3 +204,57 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     finally:
         os.chdir(old)
     assert outs[0] == outs[1]
+
+
+def _entries_equal_one_entry(entries):
+    """Every AlignJobs mode on the device entries equals the one-entry run
+    on the card, and each launch of the one-entry run becomes one launch
+    per entry (every launch pads to at least 32 lanes).  Returns the
+    launches by (kernel, device)."""
+    jobs = align_jobs(6)
+    n = len(entries.split(','))
+    by_device = collections.Counter()
+    for mode in MODES:
+        kernels.reset_launches()
+        want = run_mode(mode, jobs, 'cuda:0')
+        one = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        got = run_mode(mode, jobs, entries)
+        torch.cuda.synchronize()
+        for f in want:
+            assert np.array_equal(got[f], want[f], equal_nan=True), (mode, f)
+        assert sum(one.values()) > 0, mode
+        assert kernels.LAUNCHES == {k: n * v for k, v in one.items()}, mode
+        by_device.update(kernels.DEVICE_LAUNCHES)
+    return by_device
+
+
+def test_two_entries_on_one_card_equal_one_entry(card):
+    by_device = _entries_equal_one_entry('cuda:0,cuda:0')
+    assert {d for _, d in by_device} == {'cuda:0'}
+
+
+def test_two_cards_equal_one_card(card):
+    """Each card launches its share: the same launches on both."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs')
+    by_device = _entries_equal_one_entry('cuda:0,cuda:1')
+    assert {d for _, d in by_device} == {'cuda:0', 'cuda:1'}
+    for k in kernels.LAUNCHES:
+        assert by_device[(k, 'cuda:0')] == by_device[(k, 'cuda:1')], k
+
+
+@pytest.mark.parametrize('scheme', [(3, -6, -2, -5), (2, -3, -3, -3)])
+def test_refused_scheme_launches_nothing_on_the_card(card, scheme):
+    """Schemes the kernels refuse run on the host whatever the device:
+    the same results as on the CPU, and no kernel launch."""
+    windows, adapters, pairs, _, _ = align_jobs(3)
+    pairs = pairs[:40]                  # the linear route is Python
+    kernels.reset_launches()
+    got = dispatch.AlignJobs(windows, adapters, pairs, scheme,
+                             device='cuda').run()
+    assert sum(kernels.LAUNCHES.values()) == 0
+    want = dispatch.AlignJobs(windows, adapters, pairs, scheme,
+                              device='cpu').run()
+    for f in want:
+        assert np.array_equal(got[f], want[f], equal_nan=True), f

@@ -9,36 +9,12 @@ import pytest
 
 from porechop_tpu.ops import dispatch as jax_dispatch
 from porechop_tpu.ops import middle as jax_middle
+from porechop_tpu.ops import spec as jax_spec
 from porechop_tpu_torch.ops import dispatch, kernels, middle
 
-from .test_torch_cases import FIELDS, one_torch_thread
+from .test_torch_cases import FIELDS, align_jobs, one_torch_thread
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
-
-
-def _jobs(seed=4):
-    """Windows on three ladder rungs (150, 1024 and 2048: the last two
-    past the group max's rung guard), an empty window, adapters on three
-    adapter rungs, about a third of the windows carrying a mutated copy of
-    an adapter."""
-    rng = np.random.default_rng(seed)
-    adapters = [rng.integers(0, 4, n).astype(np.int8)
-                for n in (28, 22, 37, 24, 50)]
-    windows = []
-    for k in range(36):
-        n = (150, 150, 900, 1800)[k % 4]
-        w = rng.integers(0, 5 if k % 5 == 0 else 4, n).astype(np.int8)
-        if k % 3 == 0:
-            a = adapters[k % len(adapters)].copy()
-            a[rng.integers(0, len(a), 2)] = rng.integers(0, 4, 2)
-            pos = int(rng.integers(0, n - len(a)))
-            w[pos:pos + len(a)] = a
-        windows.append(w)
-    windows.append(np.zeros(0, np.int8))
-    pairs = np.array([(w, a) for w in range(len(windows))
-                      for a in range(len(adapters))], np.int64)
-    groups = (pairs[:, 0] % 3) * len(adapters) + pairs[:, 1]
-    return windows, adapters, pairs, groups, 3 * len(adapters)
 
 
 def _both(windows, adapters, pairs):
@@ -47,7 +23,7 @@ def _both(windows, adapters, pairs):
 
 
 def test_run_matches_jax():
-    windows, adapters, pairs, _, _ = _jobs()
+    windows, adapters, pairs, _, _ = align_jobs()
     got, want = (j.run() for j in _both(windows, adapters, pairs))
     for f in FIELDS + ('read_end_excl',):
         assert np.array_equal(got[f], want[f]), f
@@ -57,7 +33,7 @@ def test_run_matches_jax():
 
 @pytest.mark.parametrize('prefilter', [None, 90.0])
 def test_run_stats_matches_jax(prefilter):
-    windows, adapters, pairs, _, _ = _jobs(5)
+    windows, adapters, pairs, _, _ = align_jobs(5)
     got, want = (j.run_stats(prefilter=prefilter)
                  for j in _both(windows, adapters, pairs))
     assert np.array_equal(got['full_pct'], want['full_pct'])
@@ -74,7 +50,7 @@ def test_run_stats_matches_jax(prefilter):
 
 
 def test_run_group_max_matches_jax():
-    windows, adapters, pairs, groups, n_groups = _jobs(6)
+    windows, adapters, pairs, groups, n_groups = align_jobs(6)
     got, want = (j.run_group_max(groups, n_groups)
                  for j in _both(windows, adapters, pairs))
     for f in ('matches', 'full_len', 'full_pct'):
@@ -82,14 +58,14 @@ def test_run_group_max_matches_jax():
 
 
 def test_run_group_score_max_matches_jax():
-    windows, adapters, pairs, groups, n_groups = _jobs(7)
+    windows, adapters, pairs, groups, n_groups = align_jobs(7)
     got, want = (j.run_group_score_max(groups, n_groups)
                  for j in _both(windows, adapters, pairs))
     assert np.array_equal(got, want)
 
 
 def test_progress_covers_every_job():
-    windows, adapters, pairs, _, _ = _jobs(8)
+    windows, adapters, pairs, _, _ = align_jobs(8)
     seen = []
     dispatch.AlignJobs(windows, adapters, pairs, device='cpu').run(
         progress=lambda idx: seen.extend(np.asarray(idx).tolist()))
@@ -125,12 +101,44 @@ def test_bits_lanes_fit_the_budget(lb, amax):
     assert not fits(2 * n)
 
 
-def test_unported_shapes_and_schemes_raise():
-    """Schemes the kernels do not take raise; no window length does."""
-    adapter = [np.zeros(24, np.int8)]
-    with pytest.raises(NotImplementedError, match='gap_open < gap_ext'):
-        dispatch.AlignJobs([np.zeros(30, np.int8)], adapter, [(0, 0)],
-                           scoring=(3, -6, -2, -2), device='cpu').run()
+@pytest.mark.parametrize('scoring', [(3, -6, -2, -5), (2, -3, -3, -3)])
+def test_unported_shapes_and_schemes_raise(scoring, monkeypatch):
+    """Nothing raises for a scheme any more: the route is chosen by the
+    scheme.  A scheme the kernels refuse (Gotoh with gap_open > gap_ext,
+    and linear) runs on the host, launches no kernel and no plain version,
+    and gives the executable spec's results, as the JAX package does, in
+    every mode."""
+    rng = np.random.default_rng(12)
+    adapters = [rng.integers(0, 4, n).astype(np.int8) for n in (24, 18)]
+    windows = [rng.integers(0, 5, n).astype(np.int8) for n in (60, 90, 40)]
+    windows[1][30:54] = adapters[0]
+    windows.append(np.zeros(0, np.int8))
+    pairs = np.array([(w, a) for w in range(4) for a in range(2)], np.int64)
+    groups = pairs[:, 1]
+
+    def refused(*args):
+        raise AssertionError('a kernel ran for %s' % (scoring,))
+    for name in kernels.LAUNCHES:
+        monkeypatch.setattr(kernels, name, refused)
+        monkeypatch.setattr(kernels, name + '_plain', refused)
+    port = dispatch.AlignJobs(windows, adapters, pairs, scoring, device='cpu')
+    jax = jax_dispatch.AlignJobs(windows, adapters, pairs, scoring)
+    got, want = port.run(), jax.run()
+    for f in FIELDS + ('read_end_excl', 'full_pct', 'partial_pct'):
+        assert np.array_equal(got[f], want[f], equal_nan=True), f
+    codes = 'ACGTN'
+    for k, (w, a) in enumerate(pairs[:-2]):
+        s = jax_spec.align_stats(''.join(codes[c] for c in windows[w]),
+                                 ''.join(codes[c] for c in adapters[a]),
+                                 scoring)
+        assert [got[f][k] for f in FIELDS] == [getattr(s, f) for f in FIELDS]
+    for mode, args in (('run_stats', ()), ('run_group_max', (groups, 2)),
+                       ('run_group_score_max', (groups, 2))):
+        g, w = (getattr(j, mode)(*args) for j in (port, jax))
+        if not isinstance(g, dict):
+            g, w = {'': g}, {'': w}
+        for f in g:
+            assert np.array_equal(g[f], w[f]), (mode, f)
 
 
 def test_replay_rounds_match_jax():

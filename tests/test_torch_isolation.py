@@ -48,18 +48,25 @@ def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
 
 def test_port_runs_with_jax_and_porechop_tpu_blocked():
     """In a fresh interpreter where importing jax or porechop_tpu fails,
-    the port imports every module and aligns on the CPU."""
+    the port imports every module and aligns on the CPU: on the kernels'
+    plain versions over two device entries, on the native host engine
+    (built from the port's own sources) and on the linear spec."""
     code = '\n'.join([
         'import sys',
         "sys.modules['jax'] = None",
         "sys.modules['porechop_tpu'] = None",
         'import numpy as np',
         'import porechop_tpu_torch.cli',
+        'from porechop_tpu_torch import native',
         'from porechop_tpu_torch.ops import dispatch, spec',
+        'from porechop_tpu_torch.parallel import mesh',
         "w = [spec.encode('TTTAATGTACTTCGTTCAGTTACGTATTGCTGGG')]",
         "a = [spec.encode('AATGTACTTCGTTCAGTTACGTATTGCT')]",
-        "r = dispatch.AlignJobs(w, a, [(0, 0)], device='cpu').run()",
-        "assert r['full_pct'][0] == 100.0, r",
+        "for scheme in [(3, -6, -5, -2), (3, -6, -2, -5), (2, -3, -3, -3)]:",
+        "    r = dispatch.AlignJobs(w, a, [(0, 0)], scheme,",
+        "                           device='cpu,cpu').run()",
+        "    assert r['full_pct'][0] == 100.0, (scheme, r)",
+        "assert native.library()._name.startswith(str(native.BUILD_DIR))",
         "loaded = [k for k, v in sys.modules.items() if v is not None",
         "          and k.split('.')[0] in ('jax', 'porechop_tpu')]",
         'assert not loaded, loaded',

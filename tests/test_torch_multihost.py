@@ -189,7 +189,7 @@ def test_rank_with_an_empty_block(inputs, tmp_path, stream):
 
 # Each rank counts the reads that the input parse builds and writes the
 # count to loadstats.rank<r> in its working directory as it exits.
-_COUNT_READS = """import atexit
+_COUNT_READS = """import atexit, os
 from porechop_tpu_torch.pipeline import stream
 built = []
 class Counted(stream.Read):
@@ -197,9 +197,9 @@ class Counted(stream.Read):
         built.append(1)
         super().__init__(*a)
 stream.Read = Counted
-from porechop_tpu_torch.parallel import multihost
 def dump():
-    with open('loadstats.rank%d' % multihost.rank(), 'w') as f:
+    with open('loadstats.rank' + os.environ['PORECHOP_TPU_PROC_ID'],
+              'w') as f:
         f.write(str(len(built)))
 atexit.register(dump)"""
 
