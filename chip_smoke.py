@@ -28,16 +28,28 @@ kernel launch.  Last, lanes split over two device entries on the one card
 (--device cuda:0,cuda:0; also cuda:0,cuda:1 on a host with two cards):
 10 kb at -v 0/-v 1 and barcoded -b at -v 1 against the digests they
 already have, each kernel launched more often than on one entry (and on
-every named card), and every kernel held against its plain version at the
-shard shapes these runs launched.  On a host with several cards a run
+every named card).  On a host with several cards a run
 with no --device splits over all of them, so there the entry runs are
-held against the same runs on cuda:0 alone.  Every run prints its wall,
-reads/s and peak device memory per card, and the script its own wall
-before the result.  The last line of stdout is the result: {"ok": true,
+held against the same runs on cuda:0 alone.  Last, the hybrid and the
+second engine, each against the default digests: the 10 kb input at -v 0
+and -v 1 under PORECHOP_TPU_FORCE_HOST=1 (every job on the native host
+engine: no launch and no byte allocated on the card); at -v 1 with the
+size route made to engage (a threshold of 1e8 padded cells and
+PORECHOP_TPU_MIDDLE_DEVICE=0: phase 2 and the replay's small rounds on
+the native engine, detection, round 0 and the large launches on the
+card; every kernel must launch and both routes must take jobs); and at
+-v 0 and -v 1 under PORECHOP_TPU_ENGINE=v1 (the stat-carrying engine on
+the card; the replay keeps the trace-bit kernel).  Every run prints its
+wall, reads/s, peak device memory per card and jobs and padded cells per
+route.  After the runs, every kernel is held against its plain version at
+every (lanes, L, A) that any on-card run launched it at (the two-rank
+runs' included) and the first checks did not cover.  The script prints its
+own wall before the result.  The last line of stdout is the result: {"ok": true,
 "device": {...}}; before it, one {"kernels": [...]} line.  Any failure
 raises and exits non-zero without a result line.  It writes only under
 build/ (kernels, the native engine and the work directories under
-build/smoke/).
+build/smoke/); it builds the native engine first, as it builds the
+kernels, so that no run's wall holds the g++ build.
 """
 
 import contextlib
@@ -139,16 +151,28 @@ LINEAR_STDOUT_SHA = {
     1: '8a6fe297431ac92973ee0c5bcd5916e91e38bc217c8bbc4a8f02cd51ef8e8ead'}
 
 # Each rank of the two-rank runs: `python -m porechop_tpu_torch`, then its
-# peak device memory (on its card, cuda:rank % cards) and kernel launches
-# as one JSON line on stderr.
+# peak device memory (on its card, cuda:rank % cards), kernel launches,
+# routes and the (lanes, L, A) of every kernel call as one JSON line on
+# stderr.
 RANK_CODE = """\
 import json, runpy, sys, torch
+from porechop_tpu_torch.ops import dispatch, kernels
+shapes = {}
+def recording(name, fn):
+    def call(reads, read_lens, adapters, *rest):
+        shapes.setdefault(name, set()).add((*reads.shape, adapters.shape[1]))
+        return fn(reads, read_lens, adapters, *rest)
+    return call
+for name in ('forward_score', 'forward_stats', 'forward_tiled'):
+    setattr(kernels, name, recording(name, getattr(kernels, name)))
 runpy.run_module('porechop_tpu_torch', run_name='__main__', alter_sys=True)
-from porechop_tpu_torch.ops import kernels
 print(json.dumps({'peak_bytes': max(
     torch.cuda.max_memory_allocated(k)
     for k in range(torch.cuda.device_count())),
-                  'launches': kernels.LAUNCHES}), file=sys.stderr)
+                  'launches': kernels.LAUNCHES,
+                  'routes': dispatch.ROUTES,
+                  'shapes': {n: sorted(v) for n, v in shapes.items()}}),
+      file=sys.stderr)
 """
 RANK_TIMEOUT = 300
 
@@ -340,14 +364,37 @@ def _cards():
     return range(torch.cuda.device_count())
 
 
+@contextlib.contextmanager
+def environment(**names):
+    """The variables `names` set in os.environ inside the block."""
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(names)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _routes():
+    from porechop_tpu_torch.ops import dispatch
+    return {r: list(v) for r, v in dispatch.ROUTES.items()}
+
+
 def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     """One in-process run of the trimmer in directory d, on the card.
-    With on_card, every kernel must launch, and on every device that
-    --device names in argv (without it, on every card: a single process
-    splits over all of them); without on_card, none may.  Returns
-    (its launches, its trace-bit launch shapes, its stdout with d's path
-    as <WORKDIR>)."""
+    With on_card, every kernel must launch (or, given a set of kernel
+    names, those and no other), and on every device that --device names
+    in argv (without it, on every card: a single process splits over all
+    of them); without on_card, none may, and nothing may be allocated on
+    a card.  Returns (its launches, its trace-bit launch shapes, its
+    stdout with d's path as <WORKDIR>)."""
+    from porechop_tpu_torch.ops import dispatch
     kernels.reset_launches()
+    dispatch.reset_routes()
     for k in _cards():
         torch.cuda.reset_peak_memory_stats(k)
     buf = io.StringIO()
@@ -370,19 +417,32 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
               dict(kernels.DEVICE_LAUNCHES)), flush=True)
     print('  forward_tiled launches by (lanes, L, A, chunks): %s'
           % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
+    routes = _routes()
+    print('  routes (jobs, padded cells): %s' % ', '.join(
+        '%s %d, %.4g' % (r, n, c) for r, (n, c) in routes.items()),
+          flush=True)
     if on_card:
-        idle = [k for k in KERNELS if launches[k] == 0]
+        want = set(KERNELS) if on_card is True else set(on_card)
+        idle = [k for k in sorted(want) if launches[k] == 0]
         if idle:
             raise AssertionError('%s never launched %s' % (label, idle))
+        extra = [k for k in KERNELS if k not in want and launches[k]]
+        if extra:
+            raise AssertionError('%s launched %s' % (label, extra))
         named = ({'cuda:%d' % k for k in _cards()} if '--device' not in argv
                  else set(argv[argv.index('--device') + 1].split(',')))
         idle = named - {dev for _, dev in kernels.DEVICE_LAUNCHES}
         if idle:
             raise AssertionError('%s launched nothing on %s'
                                  % (label, sorted(idle)))
-    elif any(launches.values()):
-        raise AssertionError('%s launched kernels on the host route: %s'
-                             % (label, launches))
+    else:
+        if any(launches.values()) or routes['device'][0]:
+            raise AssertionError('%s launched kernels on the host route: %s'
+                                 % (label, launches))
+        held = [k for k in _cards() if torch.cuda.max_memory_allocated(k)]
+        if held:
+            raise AssertionError('%s allocated memory on cards %s'
+                                 % (label, held))
     return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
 
 
@@ -460,10 +520,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_two_ranks(work, size, stream=None):
+def run_two_ranks(work, size, shapes, stream=None):
     """The input at -v 1 as two torch.distributed ranks on the one card:
     the merged output and rank 0's transcript must be the single-process
-    run's.  Returns the launches of both ranks together."""
+    run's.  Adds the ranks' kernel call shapes to shapes; returns the
+    launches of both ranks together."""
     mode = '' if stream is None else ' --stream %d' % stream
     label = '10 kb two ranks%s -v 1' % mode
     d = _fresh_dir(work, 'ranks' + ('_mem' if stream is None else '_stream'))
@@ -498,11 +559,16 @@ def run_two_ranks(work, size, stream=None):
                          if ln.startswith('{"peak_bytes"')][-1])
              for _, err in outs]
     launches = {k: sum(s_['launches'][k] for s_ in stats) for k in KERNELS}
+    for s_ in stats:
+        for name, seen in s_['shapes'].items():
+            shapes[name].update(tuple(x) for x in seen)
     print('%s: %.2f s wall (two processes, start-up included), %.1f reads/s, '
-          'peak device memory by rank %s MiB, launches %s' % (
+          'peak device memory by rank %s MiB, launches %s, routes (jobs, '
+          'padded cells) by rank %s' % (
               label, wall, size[0] / wall,
               ['%.1f' % (s_['peak_bytes'] / 2 ** 20) for s_ in stats],
-              [s_['launches'] for s_ in stats]), flush=True)
+              [s_['launches'] for s_ in stats],
+              [s_['routes'] for s_ in stats]), flush=True)
     for r, s_ in enumerate(stats):
         idle = [k for k in KERNELS if s_['launches'][k] == 0]
         if idle:
@@ -558,10 +624,8 @@ def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
     same run on one entry (one_entry: {run label: launches}, its labels
     holding one_flag where these hold the --device flag), since each
     planner launch becomes one per entry (the middle phase's replay does
-    not split).  Returns ({run label: launches}, {kernel: shapes of the
-    shards launched})."""
-    with recorded_shapes(kernels) as shapes:
-        runs = entry_runs(cli, kernels, ['--device', entries], inputs)
+    not split).  Returns {run label: launches}."""
+    runs = entry_runs(cli, kernels, ['--device', entries], inputs)
     for label, launches in runs.items():
         one = one_entry[label.replace(' --device ' + entries, one_flag)]
         unsplit = [k for k in KERNELS if launches[k] <= one[k]]
@@ -569,20 +633,21 @@ def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
             raise AssertionError('%s: %s launched no more often than on one '
                                  'entry (%s vs %s)' % (label, unsplit,
                                                        launches, one))
-    return runs, shapes
+    return runs
 
 
-def check_shard_shapes(kernels, shapes, timings, seed=100):
-    """Each kernel against its plain version at the shard shapes the entry
-    runs launched and check_kernels did not already hold, added to
+def check_launched_shapes(kernels, shapes, timings, seed=100):
+    """Each kernel against its plain version at every shape the on-card
+    runs launched it at that check_kernels did not already hold, added to
     timings."""
     for name, seen in shapes.items():
         known = {(r['lanes'], r['L'], r['A']) for r in timings[name]}
         todo = sorted(seen - known)
-        print('%s: %d shard shapes to check' % (name, len(todo)), flush=True)
+        print('%s: %d launched shapes to check' % (name, len(todo)),
+              flush=True)
         timings[name] += check_kernels(
             kernels, {name: dict(KERNELS[name], shapes=[
-                ('launched by the entry runs', *shape) for shape in todo])},
+                ('launched by the runs', *shape) for shape in todo])},
             seed=seed)[name]
 
 
@@ -591,6 +656,107 @@ def one_card_runs(cli, kernels, inputs):
     over all of them: entry_runs on cuda:0 alone, the one entry that
     run_entries holds the entry runs against."""
     return entry_runs(cli, kernels, ['--device', 'cuda:0'], inputs)
+
+
+def hybrid_runs(cli, kernels, work, size):
+    """The 10 kb input against the default digests under
+    PORECHOP_TPU_FORCE_HOST=1 (-v 0, -v 1: no launch, nothing on the
+    card, every job on the host route), with the size route made to
+    engage (-v 1: every kernel launching, both routes taking jobs) and
+    under PORECHOP_TPU_ENGINE=v1 (-v 0, -v 1: the v1 engine on the card,
+    the replay's trace-bit kernel the only launches).  Returns {run
+    label: launches}."""
+    from porechop_tpu_torch.ops import dispatch
+    runs = {}
+    with environment(PORECHOP_TPU_FORCE_HOST='1'):
+        for v in (0, 1):
+            runs.update(run_main_path(cli, kernels, '10 kb forced host',
+                                      work, size, OUT_SHA, STDOUT_SHA,
+                                      verbosities=(v,), on_card=False))
+            if not _routes()['host'][0]:
+                raise AssertionError('a forced-host run took no host jobs')
+    saved = dispatch._HYBRID_CELLS
+    dispatch._HYBRID_CELLS = 100_000_000
+    try:
+        with environment(PORECHOP_TPU_MIDDLE_DEVICE='0'):
+            runs.update(run_main_path(cli, kernels, '10 kb hybrid 1e8',
+                                      work, size, OUT_SHA, STDOUT_SHA,
+                                      verbosities=(1,)))
+    finally:
+        dispatch._HYBRID_CELLS = saved
+    routes = _routes()
+    if not (routes['native'][0] and routes['device'][0]):
+        raise AssertionError('the hybrid run did not take both routes: %s'
+                             % routes)
+    with environment(PORECHOP_TPU_ENGINE='v1'):
+        runs.update(run_main_path(cli, kernels, '10 kb v1', work, size,
+                                  OUT_SHA, STDOUT_SHA,
+                                  on_card={'forward_tiled'}))
+    return runs
+
+
+def on_card_runs(cli, kernels, shapes):
+    """Every run of the trimmer, in the order the module docstring gives;
+    shapes collects the two-rank runs' kernel call shapes.  Returns {run
+    label: launches}."""
+    from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
+                                                 synth_barcoded, synth_mixed,
+                                                 synth_reads)
+    runs = {}
+    work = WORK
+    size = make_input('10 kb', work,
+                      lambda: synth_reads(8192, 10000, seed=0), READS_SHA)
+    for stream in (None, 2048):
+        runs.update(run_main_path(cli, kernels, '10 kb', work, size, OUT_SHA,
+                                  STDOUT_SHA, stream=stream))
+    long_work = WORK / 'long'
+    long_size = make_input('long-read', long_work,
+                           lambda: synth_mixed(LONG_READ_PARTS),
+                           LONG_READS_SHA)
+    for stream in (None, 640):
+        runs.update(run_main_path(cli, kernels, 'long-read', long_work,
+                                  long_size, LONG_OUT_SHA, LONG_STDOUT_SHA,
+                                  stream=stream, split=True))
+    bc_work = WORK / 'barcoded'
+    bc_size = make_input('barcoded', bc_work,
+                         lambda: synth_barcoded(8192, 10000, seed=0),
+                         BARCODED_READS_SHA)
+    # Streamed in two chunks: four took 25 s a run on the H100.
+    for stream in (None, 4096):
+        runs.update(run_barcoded(cli, kernels, bc_work, bc_size,
+                                 stream=stream))
+    for stream in (None, 2048):
+        runs.update(run_two_ranks(work, size, shapes, stream=stream))
+
+    # Schemes the kernels refuse: on the host, no launch.
+    runs.update(run_main_path(cli, kernels, '10 kb', work, size,
+                              GOTOH_OUT_SHA, GOTOH_STDOUT_SHA,
+                              flags=GOTOH_FLAGS, on_card=False))
+    lin_work = WORK / 'linear'
+    lin_size = make_input('linear-scheme', lin_work,
+                          lambda: synth_reads(16, 1000, seed=0),
+                          LINEAR_READS_SHA)
+    runs.update(run_main_path(cli, kernels, '16 x 1 kb', lin_work, lin_size,
+                              LINEAR_OUT_SHA, LINEAR_STDOUT_SHA,
+                              flags=LINEAR_FLAGS, verbosities=(1,),
+                              on_card=False))
+
+    # Device entries: two on the one card, and two cards where there are
+    # (the runs above then split over every card, so the entries are held
+    # against runs on cuda:0 alone).
+    inputs = ((work, size), (bc_work, bc_size))
+    one, one_flag = runs, ''
+    entry_lists = ['cuda:0,cuda:0']
+    if torch.cuda.device_count() > 1:
+        entry_lists.append('cuda:0,cuda:1')
+        one, one_flag = one_card_runs(cli, kernels, inputs), ' --device cuda:0'
+        runs.update(one)
+    for entries in entry_lists:
+        runs.update(run_entries(cli, kernels, entries, inputs, one,
+                                one_flag))
+
+    runs.update(hybrid_runs(cli, kernels, work, size))
+    return runs
 
 
 def main():
@@ -621,65 +787,16 @@ def main():
 
     print('trace-bit kernel, warps the card holds at once by AMAX: %s'
           % {a: kernels.card_warps(a) for a in (32, 64, 128)}, flush=True)
+    from porechop_tpu_torch import native
+    t0 = time.perf_counter()
+    native.library()
+    print('built the native host engine in %.1f s' % (time.perf_counter()
+                                                       - t0), flush=True)
 
-    from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
-                                                 synth_barcoded, synth_mixed,
-                                                 synth_reads)
     timings = check_kernels(kernels)
-    runs = {}
-    work = WORK
-    size = make_input('10 kb', work,
-                      lambda: synth_reads(8192, 10000, seed=0), READS_SHA)
-    for stream in (None, 2048):
-        runs.update(run_main_path(cli, kernels, '10 kb', work, size, OUT_SHA,
-                                  STDOUT_SHA, stream=stream))
-    long_work = WORK / 'long'
-    long_size = make_input('long-read', long_work,
-                           lambda: synth_mixed(LONG_READ_PARTS),
-                           LONG_READS_SHA)
-    for stream in (None, 640):
-        runs.update(run_main_path(cli, kernels, 'long-read', long_work,
-                                  long_size, LONG_OUT_SHA, LONG_STDOUT_SHA,
-                                  stream=stream, split=True))
-    bc_work = WORK / 'barcoded'
-    bc_size = make_input('barcoded', bc_work,
-                         lambda: synth_barcoded(8192, 10000, seed=0),
-                         BARCODED_READS_SHA)
-    # Streamed in two chunks: four took 25 s a run on the H100.
-    for stream in (None, 4096):
-        runs.update(run_barcoded(cli, kernels, bc_work, bc_size,
-                                 stream=stream))
-    for stream in (None, 2048):
-        runs.update(run_two_ranks(work, size, stream=stream))
-
-    # Schemes the kernels refuse: on the host, no launch.
-    runs.update(run_main_path(cli, kernels, '10 kb', work, size,
-                              GOTOH_OUT_SHA, GOTOH_STDOUT_SHA,
-                              flags=GOTOH_FLAGS, on_card=False))
-    lin_work = WORK / 'linear'
-    lin_size = make_input('linear-scheme', lin_work,
-                          lambda: synth_reads(16, 1000, seed=0),
-                          LINEAR_READS_SHA)
-    runs.update(run_main_path(cli, kernels, '16 x 1 kb', lin_work, lin_size,
-                              LINEAR_OUT_SHA, LINEAR_STDOUT_SHA,
-                              flags=LINEAR_FLAGS, verbosities=(1,),
-                              on_card=False))
-
-    # Device entries: two on the one card, and two cards where there are
-    # (the runs above then split over every card, so the entries are held
-    # against runs on cuda:0 alone).
-    inputs = ((work, size), (bc_work, bc_size))
-    one, one_flag = runs, ''
-    entry_lists = ['cuda:0,cuda:0']
-    if torch.cuda.device_count() > 1:
-        entry_lists.append('cuda:0,cuda:1')
-        one, one_flag = one_card_runs(cli, kernels, inputs), ' --device cuda:0'
-        runs.update(one)
-    for entries in entry_lists:
-        split_runs, shapes = run_entries(cli, kernels, entries, inputs, one,
-                                         one_flag)
-        runs.update(split_runs)
-        check_shard_shapes(kernels, shapes, timings)
+    with recorded_shapes(kernels) as shapes:
+        runs = on_card_runs(cli, kernels, shapes)
+    check_launched_shapes(kernels, shapes, timings)
 
     line = []
     for name, spec_ in KERNELS.items():

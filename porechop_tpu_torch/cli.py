@@ -13,7 +13,9 @@ shares of every launch's lanes split over them ('cuda:0,cuda:1',
 'cpu,cpu'; ops/dispatch.py).  With none named, a single process takes
 every local card (parallel/mesh.local_devices) and a multi-process run
 (parallel/multihost.py) gives each rank the card cuda:(rank % cards).
-Other schemes run on the host, whatever the device (ops/dispatch.py).
+Other schemes, and launches too small to pay for a card, run on the host
+(ops/dispatch.py); under PORECHOP_TPU_FORCE_HOST=1 every alignment does,
+and no card is looked for.
 """
 
 import argparse
@@ -22,7 +24,7 @@ import multiprocessing
 import os
 import sys
 
-from .ops.dispatch import resolve_devices
+from .ops.dispatch import force_host, resolve_devices
 from .parallel import mesh, multihost
 from .pipeline import stream as stream_mod
 from .pipeline.output import output_reads
@@ -58,12 +60,15 @@ def _run_pipeline(args, device_name):
     # --stream and a coordinator set, each rank streams its own record
     # range.
     mh = multihost.maybe_init()
+    # Under PORECHOP_TPU_FORCE_HOST every job runs on the host: no card is
+    # looked for.
+    on_cards = device_name is None and not force_host()
     if mh:
-        if device_name is None:
+        if on_cards:
             device = [multihost.rank_device()]
         if multihost.rank() > 0:
             args.print_dest = open(os.devnull, 'w')
-    elif device_name is None:
+    elif on_cards:
         device = mesh.local_devices()
     chunk_size = stream_mod.stream_chunk_size(args)
     if chunk_size:

@@ -1,5 +1,7 @@
-"""The port's host engine for the Gotoh schemes the CUDA kernels refuse
-(counterpart of porechop_tpu/native/__init__.py).
+"""The port's host engine (counterpart of porechop_tpu/native/__init__.py):
+for the Gotoh schemes the CUDA kernels refuse, for launches too small to
+pay for the card (the planner's size route, ops/dispatch.py), and for
+every job under PORECHOP_TPU_FORCE_HOST.
 
 The kernels take only gap_open < gap_ext (ops/kernels.supports).  SeqAn
 aligns every scheme with gap_open != gap_ext under Gotoh's affine profile,
@@ -21,8 +23,8 @@ The library builds with g++ at first use into build/native/ beside the
 package, named by a digest of the sources and the host CPU (it is built
 with -march=native), through a per-process temporary file and os.replace
 so that concurrent processes never collide.  Without g++, or when the
-build fails, it raises and names the scheme: no path falls back to
-another engine.
+build fails, it raises and names the scheme; only the size route, whose
+jobs the card can run, gives way to the card then (available()).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ FIELDS = ('read_start', 'read_end', 'adapter_start', 'adapter_end',
           'raw_score', 'matches', 'aligned_len', 'full_len')
 
 _LIB = None
+_FAILED = None      # why the library did not build or load, once it did not
 
 
 def _host_key() -> bytes:
@@ -108,6 +111,19 @@ def library(scoring=None):
     return _LIB
 
 
+def available() -> bool:
+    """Whether the engine loads, building it at first use; a library that
+    failed to build or load is not tried again in this process.  For the
+    planner's size route, which gives way to the card without it."""
+    global _FAILED
+    if _LIB is None and _FAILED is None:
+        try:
+            library()
+        except (OSError, RuntimeError) as e:
+            _FAILED = e
+    return _LIB is not None
+
+
 def _concat(seqs):
     off = np.zeros(len(seqs) + 1, dtype=np.int64)
     off[1:] = np.cumsum([len(s) for s in seqs])
@@ -117,12 +133,18 @@ def _concat(seqs):
     return buf, off
 
 
+def threads() -> int:
+    """The engine's default thread count: one per core, at most 16."""
+    return min(os.cpu_count() or 1, 16)
+
+
 def align_batch(windows, adapters, pairs, scoring,
-                entry='align_simd_batch') -> np.ndarray:
+                entry='align_simd_batch', n_threads=None) -> np.ndarray:
     """Aligns every (window, adapter) pair of `pairs` (P, 2) through the
-    C entry point `entry` (ENTRY_POINTS) on one host thread per core, at
-    most 16.  windows/adapters: lists of np.int8 Dna5 codes.  Returns the
-    (P, 9) int64 rows (columns: FIELDS, then a reserved one)."""
+    C entry point `entry` (ENTRY_POINTS) on n_threads host threads
+    (default threads()).  windows/adapters: lists of np.int8 Dna5 codes.
+    Returns the (P, 9) int64 rows (columns: FIELDS, then a reserved
+    one)."""
     match, mismatch, gap_open, gap_ext = (int(x) for x in scoring)
     if gap_open == gap_ext:
         raise ValueError('scoring scheme %s is linear: the native engine '
@@ -141,7 +163,9 @@ def align_batch(windows, adapters, pairs, scoring,
     pr = np.ascontiguousarray(pairs[:, 0])
     pa = np.ascontiguousarray(pairs[:, 1])
     out = np.zeros((len(pairs), 9), dtype=np.int64)
-    n_threads = min(os.cpu_count() or 1, 16)
+    n_threads = threads() if n_threads is None else int(n_threads)
+    if n_threads < 1:
+        raise ValueError('n_threads must be at least 1')
 
     def p(a, t):
         return a.ctypes.data_as(ctypes.POINTER(t))

@@ -8,13 +8,30 @@ Window lengths snap to a geometric ladder and adapters pad to their rung,
 so launch shapes are stable across runs; launches are chunked to bound
 device memory.
 
-The route is chosen by the scoring scheme, never by the device:
+The route is chosen by the scoring scheme, then by launch size:
 - gap_open < gap_ext (kernels.supports): the DP kernels, on the device
   entries the caller names (default the card);
 - any other gap_open != gap_ext: the native Gotoh engine on the host
   (porechop_tpu_torch/native), in one threaded batch call;
 - gap_open == gap_ext (linear): the executable spec (spec.align_linear),
   one job at a time.
+The size route (porechop_tpu/ops/dispatch.py's hybrid) is off unless the
+caller sets PORECHOP_TPU_HYBRID_CELLS: then a kernel-scheme launch of
+fewer padded cells runs on the native engine instead, in one threaded
+batch on a worker thread beside the device launches, and the native queue
+also takes power-of-two slices of device chunks where it would otherwise
+finish first (_share_with_native).  PORECHOP_TPU_MERGE_CELLS, also off
+unless set, merges same-rung device work into a wider adapter rung where
+that saves launches (_merge_adapter_rungs).  Both change launch shapes and
+counts; on the H100 neither paid end to end in paired runs (PERF.md), so
+neither is on by default, on any device.  If the native engine fails to
+load, its chunks run on the device entries instead (with a note on
+stderr); a kernel that fails still raises.
+PORECHOP_TPU_FORCE_HOST=1 runs every job on the host (Gotoh schemes on
+the native engine, linear ones through the spec) and touches no CUDA
+device; PORECHOP_TPU_NO_NATIVE=1 turns the size route off.
+PORECHOP_TPU_ENGINE=v1 sends every device chunk through the stat-carrying
+engine (ops/engine_v1.run_jobs) on the first device entry.
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
 only decides whether the kernels or their plain versions run.
@@ -29,12 +46,16 @@ the shards are harvested in order, so the results are those of one entry.
 
 from __future__ import annotations
 
+import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 from .. import native
 from ..parallel import mesh
-from . import engine_v2, kernels, spec
+from . import engine_v1, engine_v2, kernels, spec
 
 # Window-length ladder: fine-grained at the small end (end windows), then
 # geometric.
@@ -52,12 +73,71 @@ _MIN_LANES = 32
 
 _A_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 
+# The size route's threshold and the adapter-rung merge's price of one
+# launch, in padded cells, under the JAX package's variable names
+# (porechop_tpu/ops/dispatch.py:51-55, :551).  0, the default, turns each
+# off.  The H100's measured break-even (breakeven_torch.py: NVIDIA H100
+# 80GB HBM3, 700.00 W, 8 host cores) was 1.35e7 cells for the bitless
+# modes and none or 8.2e8 for a trace-bit launch with its walk, and a
+# merge price of 2.75e7; paired runs at those values showed no gain over
+# both off (PERF.md section 6), so they are not defaults.
+_HYBRID_CELLS = int(os.environ.get('PORECHOP_TPU_HYBRID_CELLS', 0))
+_MERGE_CELLS = int(os.environ.get('PORECHOP_TPU_MERGE_CELLS', 0))
+
+# Jobs and padded cells per route since reset_routes(): 'device' (kernel
+# launches, padded lanes), 'native' (the size route: jobs at their rungs'
+# cells) and 'host' (schemes the kernels refuse, PORECHOP_TPU_FORCE_HOST:
+# jobs at their rungs' cells).
+ROUTES = {'device': [0, 0], 'native': [0, 0], 'host': [0, 0]}
+
+
+def reset_routes() -> None:
+    for v in ROUTES.values():
+        v[:] = [0, 0]
+
+
+def force_host() -> bool:
+    """PORECHOP_TPU_FORCE_HOST (any value): every job runs on the host
+    engine and no CUDA device is resolved or touched."""
+    return bool(os.environ.get('PORECHOP_TPU_FORCE_HOST'))
+
+
+def score_path_available(scoring=(3, -6, -5, -2)) -> bool:
+    """Whether a walk-free score-only execution exists for this scheme
+    (porechop_tpu/ops/dispatch.py:99-109): the score kernel, or under
+    PORECHOP_TPU_FORCE_HOST the native engine's score-only entry point."""
+    if not force_host():
+        return kernels.supports(scoring)
+    _, _, gap_open, gap_ext = (int(x) for x in scoring)
+    return not (os.environ.get('PORECHOP_TPU_NO_NATIVE')
+                or gap_open == gap_ext)
+
+
+def stats_path_active(scoring=(3, -6, -5, -2), prefilter=None) -> bool:
+    """Whether AlignJobs.run_stats routes bulk work through a cheaper
+    stats or score execution than the full run
+    (porechop_tpu/ops/dispatch.py:112-134).  On the device entries the
+    bitless kernels skip the trace bits and the walk, so it always pays.
+    Under PORECHOP_TPU_FORCE_HOST a plain stats pass costs the native
+    engine a full run, so it pays only with a non-vacuous `prefilter`
+    threshold and the native score-only entry point."""
+    if not force_host():
+        return kernels.supports(scoring)
+    if prefilter is None:
+        return False
+    if kernels.score_prefilter_coef(prefilter, *scoring) <= 0:
+        return False
+    return score_path_available(scoring)
+
 
 def resolve_device(device=None) -> torch.device:
     """The device the port runs on: the card unless the caller asks for
     another one.  Raises when the card is asked for and there is none;
-    there is no quiet fallback to the CPU."""
+    there is no quiet fallback to the CPU.  Under PORECHOP_TPU_FORCE_HOST
+    nothing runs on it, so it is named and not checked."""
     dev = torch.device('cuda' if device is None else device)
+    if force_host():
+        return dev
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device is available; pass device="cpu" '
                            '(CLI: --device cpu) to run on the CPU')
@@ -129,6 +209,52 @@ def _bucket_lanes(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _pad_cells(lb: int, amax: int, n: int) -> int:
+    """Padded DP cells of an n-lane launch at rungs (lb, amax)."""
+    return _bucket_lanes(n) * (lb + 1) * amax if n else 0
+
+
+def _buckets(todo, pw, pa) -> dict:
+    """{(window rung, adapter rung): job indices} of the jobs `todo`
+    (window lengths pw, adapter lengths pa): adapters pad to their rung,
+    not the batch max, so launch shapes are stable across runs.  A radix
+    sort over rung indices (the pair is a point on a tiny grid)."""
+    lad = np.asarray(_LADDER, dtype=np.int64)
+    wi = np.searchsorted(lad, pw, side='left')
+    lbv = np.where(wi < len(lad), lad[np.minimum(wi, len(lad) - 1)],
+                   ((pw + 65535) // 65536) * 65536)
+    alad = np.asarray(_A_LADDER, dtype=np.int64)
+    ai = np.searchsorted(alad, pa, side='left')
+    amv = np.where(ai < len(alad), alad[np.minimum(ai, len(alad) - 1)],
+                   ((pa + 127) // 128) * 128)
+    Ga = len(alad) + 1
+    comb = wi * Ga + ai
+    over = (wi >= len(lad)) | (ai >= len(alad))
+    if over.any():
+        okey = lbv[over] * (1 << 20) + amv[over]
+        _, oinv = np.unique(okey, return_inverse=True)
+        comb[over] = (len(lad) + 1) * Ga + oinv
+    order = np.argsort(comb, kind='stable')
+    sc = comb[order]
+    cut = np.nonzero(np.diff(sc))[0] + 1
+    starts = np.concatenate((np.zeros(1, np.int64), cut))
+    ends = np.concatenate((cut, np.asarray([len(sc)], np.int64)))
+    todo_ord = todo[order]
+    return {(int(lbv[order][s]), int(amv[order][s])): todo_ord[s:e]
+            for s, e in zip(starts, ends)}
+
+
+def _named(seqs, idx):
+    """The sequences of `seqs` that the indices idx name, as a list of
+    their own, and idx mapped into it."""
+    named = np.zeros(len(seqs), dtype=bool)
+    named[idx] = True
+    used = np.nonzero(named)[0]
+    row = np.zeros(len(seqs), dtype=np.int64)
+    row[used] = np.arange(len(used))
+    return [seqs[k] for k in used], row[idx]
 
 
 def seqan_pct_vec(matches: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -276,7 +402,7 @@ class AlignJobs:
             match, mismatch, gap_open, gap_ext = self.scoring
             coef = kernels.score_prefilter_coef(prefilter, match, mismatch,
                                                 gap_open, gap_ext)
-            if coef > 0 and kernels.supports(self.scoring):
+            if coef > 0 and score_path_available(self.scoring):
                 return self._run_stats_prefiltered(coef, progress)
         self._stats_only = True
         self._stats_failed = np.zeros(len(self.pairs), dtype=bool)
@@ -312,8 +438,9 @@ class AlignJobs:
             failed, self._stats_failed = self._stats_failed, None
         failed |= res['read_start'] == -1
 
-        # Lanes that ran the full walk (rungs without a stats path) carry
-        # full results already.
+        # Lanes that ran a full alignment (the native engine's full entry
+        # point, rungs without a stats path, the v1 engine) carry full
+        # results already.
         host_pct = seqan_pct_vec(res['matches'], res['full_len'])
         host_ok = ~failed & (res['full_len'] > 0) & ~score_lanes
         full_pct = np.where(host_ok, host_pct, 0.0)
@@ -342,7 +469,7 @@ class AlignJobs:
         read_end_incl, adapter_start, adapter_end).
 
         progress: optional callable(job_indices) invoked as groups of jobs
-        resolve (degenerate fixes, each chunk harvest)."""
+        resolve (degenerate fixes, each chunk harvest, the native batch)."""
         if progress is None:
             progress = _noop_progress
         P = len(self.pairs)
@@ -367,42 +494,28 @@ class AlignJobs:
         todo = np.nonzero(~degenerate)[0]
         if todo.size == 0:
             return self._package(out)
-        if not kernels.supports(self.scoring):
-            self._run_host(todo, out)
+        buckets = _buckets(todo, pw[todo], pa[todo])
+        if force_host() or not kernels.supports(self.scoring):
+            self._count('host', [(lb, amax, c)
+                                 for (lb, amax), c in buckets.items()])
+            self._scatter_host(todo, self._host_batch(todo), out)
             progress(todo)
             return self._package(out)
 
-        # Bucket by (window rung, adapter rung): adapters pad to the rung,
-        # not the batch max, so launch shapes are stable across runs.
-        # Radix sort over rung indices (the pair is a point on a tiny grid).
-        lad = np.asarray(_LADDER, dtype=np.int64)
-        wi = np.searchsorted(lad, pw[todo], side='left')
-        lbv = np.where(wi < len(lad), lad[np.minimum(wi, len(lad) - 1)],
-                       ((pw[todo] + 65535) // 65536) * 65536)
-        alad = np.asarray(_A_LADDER, dtype=np.int64)
-        ai = np.searchsorted(alad, pa[todo], side='left')
-        amv = np.where(ai < len(alad), alad[np.minimum(ai, len(alad) - 1)],
-                       ((pa[todo] + 127) // 128) * 128)
-        Ga = len(alad) + 1
-        comb = wi * Ga + ai
-        over = (wi >= len(lad)) | (ai >= len(alad))
-        if over.any():
-            okey = lbv[over] * (1 << 20) + amv[over]
-            _, oinv = np.unique(okey, return_inverse=True)
-            comb[over] = (len(lad) + 1) * Ga + oinv
-        order = np.argsort(comb, kind='stable')
-        sc = comb[order]
-        cut = np.nonzero(np.diff(sc))[0] + 1
-        starts = np.concatenate((np.zeros(1, np.int64), cut))
-        ends = np.concatenate((cut, np.asarray([len(sc)], np.int64)))
-        todo_ord = todo[order]
-        buckets = {(int(lbv[order][s]), int(amv[order][s])): todo_ord[s:e]
-                   for s, e in zip(starts, ends)}
-
+        hybrid = (_HYBRID_CELLS
+                  if _HYBRID_CELLS > 0 and self._native_available() else 0)
+        if _MERGE_CELLS > 0:
+            self._merge_adapter_rungs(buckets, hybrid, _MERGE_CELLS)
+        small_meta = []   # (lb, amax, chunk) for the native host engine
         device_work = []  # (lb, amax, chunk) launches
         for (lb, amax), idxs in sorted(buckets.items()):
             for chunk in self._chunk_split(np.asarray(idxs), lb, amax):
-                device_work.append((lb, amax, chunk))
+                if _pad_cells(lb, amax, len(chunk)) < hybrid:
+                    small_meta.append((lb, amax, chunk))
+                else:
+                    device_work.append((lb, amax, chunk))
+        if hybrid > 0 and device_work:
+            device_work = self._share_with_native(small_meta, device_work)
 
         # Per-rung job index lists, so table uploads dedup across buckets
         # sharing a rung.
@@ -411,17 +524,193 @@ class AlignJobs:
         for lb, amax, chunk in device_work:
             rung_w.setdefault(lb, []).append(chunk)
             rung_a.setdefault(amax, []).append(chunk)
-
-        # Enqueue every launch before touching results: CUDA launches are
-        # asynchronous, so they run back to back while the host moves on.
         tables = {}
+        # The native batch runs on a worker thread from before the first
+        # launch to after the last harvest: a trace-bit launch walks on
+        # this thread, and the engine's ctypes call drops the GIL.
+        small = (np.concatenate([c for _, _, c in small_meta])
+                 if small_meta else None)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            host = (pool.submit(self._native_batch, small)
+                    if small is not None else None)
+            self._run_device(device_work, tables, rung_w, rung_a, out,
+                             progress)
+            res = host.result() if host is not None else None
+        if res is not None:
+            self._count('native', small_meta)
+            self._scatter_host(small, res, out)
+            progress(small)
+        elif small is not None:
+            # The native engine failed: its chunks run on the device
+            # entries, and the rung tables grow to cover them.
+            for lb, amax, chunk in small_meta:
+                rung_w.setdefault(lb, []).append(chunk)
+                rung_a.setdefault(amax, []).append(chunk)
+            self._run_device(small_meta, tables, rung_w, rung_a, out,
+                             progress)
+        return self._package(out)
+
+    def _run_device(self, work, tables, rung_w, rung_a, out, progress):
+        """The (lb, amax, chunk) launches of `work` on the device entries:
+        every launch enqueued before any harvest (CUDA launches are
+        asynchronous, so they run back to back while the host moves on),
+        or under PORECHOP_TPU_ENGINE=v1 each chunk through the v1 engine."""
+        self._count('device', work, padded=True)
+        if engine_v1.selected():
+            for lb, amax, chunk in work:
+                res = engine_v1.run_jobs(self.windows, self.adapters,
+                                         self.pairs[chunk], lb, amax,
+                                         self.scoring, self.device)
+                for f in out:
+                    out[f][chunk] = res[f]
+                progress(chunk)
+            return
         pending = [(chunk, self._launch_chunk(chunk, lb, amax, tables,
                                               rung_w, rung_a))
-                   for lb, amax, chunk in device_work]
+                   for lb, amax, chunk in work]
         for chunk, h in pending:
             self._harvest(chunk, h, out)
             progress(chunk)
-        return self._package(out)
+
+    @staticmethod
+    def _count(route, work, padded=False):
+        """Adds the (lb, amax, jobs) work to ROUTES[route]: jobs, and cells
+        at the rungs (lanes padded to the launch width when `padded`)."""
+        for lb, amax, chunk in work:
+            n = _bucket_lanes(len(chunk)) if padded else len(chunk)
+            ROUTES[route][0] += len(chunk)
+            ROUTES[route][1] += n * (lb + 1) * amax
+
+    # The work-share model's rates, cells/s
+    # (porechop_tpu/ops/dispatch.py:594-620), used only when the size route
+    # is on: the native queue runs beside the device launches, so the model
+    # splits a run's work to make both finish together.  H100 defaults
+    # (breakeven_torch.py on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+    # section 6): each mode's effective rate through the planner (tables,
+    # upload, launch, walk, harvest) at its largest measured call, where
+    # the fixed cost weighs least: score 7.15e10 at 16,384 x 10,240 x 32,
+    # stats 7.29e10 at 1,024 x 10,240 x 32 (group max, which shares it,
+    # 2.63e10 at 1,048,576 x 150 x 24), trace bits with the walk 2.38e10 at
+    # 2,048 x 16,384 x 32.  The device rate stands for one card: with
+    # device entries on several cards it underestimates them (set
+    # PORECHOP_TPU_DEV_CELLS_S* to their sum).  The native rate scales with
+    # the threads the size route runs on (native.threads() - 1) from
+    # align_simd_batch's rate per thread at rung 150, the lower of two
+    # calls on 8 threads (2.18e9 / 8).
+    _HOST_CELLS_S = float(os.environ.get(
+        'PORECHOP_TPU_HOST_CELLS_S',
+        2.18e9 / 8 * max(1, native.threads() - 1)))
+    _DEV_CELLS_S = float(os.environ.get('PORECHOP_TPU_DEV_CELLS_S',
+                                        '2.38e10'))
+    _DEV_CELLS_S_STATS = float(os.environ.get(
+        'PORECHOP_TPU_DEV_CELLS_S_STATS', '7.29e10'))
+    _DEV_CELLS_S_SCORE = float(os.environ.get(
+        'PORECHOP_TPU_DEV_CELLS_S_SCORE', '7.15e10'))
+
+    def _dev_rate(self) -> float:
+        """Device cells/s for the work-share model under the active mode."""
+        if self._score_only:
+            return self._DEV_CELLS_S_SCORE
+        if self._stats_only or self._group is not None:
+            return self._DEV_CELLS_S_STATS
+        return self._DEV_CELLS_S
+
+    def _share_with_native(self, small_meta, device_work):
+        """Balances one run's work across both engines
+        (porechop_tpu/ops/dispatch.py:622-678): diverts job slices from
+        device-bound chunks to the native queue so that the two finish
+        together under the rate model (minimise max(device cells / device
+        rate, native cells / host rate)).  Greedy over quantised moves: a
+        device chunk can only shrink to a power-of-two lane count (any
+        other count pads straight back up) or leave entirely.  Returns the
+        trimmed device_work; diverted jobs are appended to small_meta."""
+        rh, rd = self._HOST_CELLS_S, self._dev_rate()
+        kept = list(device_work)
+        c_dev = float(sum(_pad_cells(lb, amax, len(c))
+                          for lb, amax, c in kept))
+        # The native side pays real (unpadded) lanes at the rungs' cells.
+        c_host = float(sum(len(c) * (lb + 1) * amax
+                           for lb, amax, c in small_meta))
+        while True:
+            wall = max(c_dev / rd, c_host / rh)
+            best = None
+            for n, (lb, amax, chunk) in enumerate(kept):
+                jc = (lb + 1) * amax
+                L = len(chunk)
+                keeps = {0}
+                p = _bucket_lanes(L) // 2
+                while p >= _MIN_LANES:
+                    if p < L:
+                        keeps.add(p)
+                    p //= 2
+                for keep in keeps:
+                    nd = c_dev - _pad_cells(lb, amax, L) \
+                        + _pad_cells(lb, amax, keep)
+                    nh = c_host + (L - keep) * jc
+                    w = max(nd / rd, nh / rh)
+                    if w < wall - 1e-9 and (best is None or w < best[0]):
+                        best = (w, n, keep)
+            if best is None:
+                break
+            _, n, keep = best
+            lb, amax, chunk = kept[n]
+            c_dev += _pad_cells(lb, amax, keep) \
+                - _pad_cells(lb, amax, len(chunk))
+            c_host += (len(chunk) - keep) * (lb + 1) * amax
+            small_meta.append((lb, amax, chunk[keep:]))
+            if keep:
+                kept[n] = (lb, amax, chunk[:keep])
+            else:
+                kept.pop(n)
+        return kept
+
+    def _merge_adapter_rungs(self, buckets, hybrid, merge) -> None:
+        """Merges same-window-rung, device-bound work whose adapter rungs
+        differ into the widest rung among them, when the extra adapter
+        padding costs less than `merge` padded cells per launch saved
+        (porechop_tpu/ops/dispatch.py:680-733).  Padding an adapter beyond
+        its length is free for correctness (rows past adapter_len are
+        frozen).  Device-boundness is judged on the post-split chunks that
+        run() routes by (cells >= hybrid): a native-bound tail chunk of a
+        large bucket stays behind in its own (lb, amax) bucket."""
+        by_lb = {}
+        for (lb, amax), idxs in buckets.items():
+            by_lb.setdefault(lb, []).append((amax, idxs))
+        for lb, lst in by_lb.items():
+            cand = []     # (amax, device-bound idxs, n device chunks)
+            native_rest = {}
+            for amax, idxs in lst:
+                dev_chunks, nat_chunks = [], []
+                for chunk in self._chunk_split(np.asarray(idxs), lb, amax):
+                    if _pad_cells(lb, amax, len(chunk)) < hybrid:
+                        nat_chunks.append(chunk)
+                    else:
+                        dev_chunks.append(chunk)
+                if dev_chunks:
+                    cand.append((amax, np.concatenate(dev_chunks),
+                                 len(dev_chunks)))
+                native_rest[amax] = (np.concatenate(nat_chunks)
+                                     if nat_chunks else None)
+            if len(cand) < 2:
+                continue
+            target = max(amax for amax, _, _ in cand)
+            extra = sum(_bucket_lanes(len(didx)) * (lb + 1) * (target - amax)
+                        for amax, didx, _ in cand if amax != target)
+            merged_len = sum(len(didx) for _, didx, _ in cand)
+            n_merged = -(-merged_len // self._per_launch(lb, target))
+            saved = sum(n for _, _, n in cand) - n_merged
+            if saved <= 0 or extra >= saved * merge:
+                continue
+            merged = np.concatenate([didx for _, didx, _ in cand])
+            for amax, _, _ in cand:
+                rest = native_rest[amax]
+                if rest is not None and amax != target:
+                    buckets[(lb, amax)] = rest
+                else:
+                    del buckets[(lb, amax)]
+            if native_rest.get(target) is not None:
+                merged = np.concatenate([merged, native_rest[target]])
+            buckets[(lb, target)] = np.sort(merged)
 
     def _is_groupmax_rung(self, lb) -> bool:
         """Chunks of this window rung launch through the group max."""
@@ -447,41 +736,86 @@ class AlignJobs:
         for lo in range(0, len(idxs), per_launch):
             yield idxs[lo:lo + per_launch]
 
-    def _run_host(self, todo, out):
-        """The jobs `todo` under a scheme the kernels refuse, on the host
-        (porechop_tpu/ops/dispatch.py:891-989): Gotoh schemes on the
-        native engine in one threaded batch call, linear ones through the
-        executable spec one job at a time.  Full results, except that the
-        native engine's score-only pass (a score-only mode) fills only
-        raw_score and the degenerate marker."""
+    @staticmethod
+    def _native_available() -> bool:
+        """Whether the size route may use the native engine: not turned
+        off (PORECHOP_TPU_NO_NATIVE) and the library loads (built with
+        g++ at first use)."""
+        return (not os.environ.get('PORECHOP_TPU_NO_NATIVE')
+                and native.available())
+
+    def _native_batch(self, todo):
+        """The size route's jobs `todo` (a kernel scheme, so Gotoh) on the
+        native engine: _host_batch's rows, or None when the engine returns
+        nothing or its library fails to load (the caller then runs them on
+        the device entries).  It runs beside this process's launches,
+        walks and harvests, so it leaves their thread one core."""
+        try:
+            res = self._host_batch(todo, max(1, native.threads() - 1))
+        except OSError as e:
+            res, why = None, 'failed to load (%s)' % e
+        else:
+            why = 'returned nothing'
+        if res is None:
+            print('porechop_tpu_torch: the native engine %s; its %d jobs '
+                  'run on the device' % (why, len(todo)), file=sys.stderr)
+        return res
+
+    def _host_batch(self, todo, n_threads=None):
+        """The jobs `todo` on the host route (schemes the kernels refuse,
+        PORECHOP_TPU_FORCE_HOST; porechop_tpu/ops/dispatch.py:891-989):
+        Gotoh schemes on the native engine in one threaded batch call
+        (raising, naming the scheme, without g++), linear ones through the
+        executable spec one job at a time.  Returns the (P, 9) rows."""
         pairs = self.pairs[todo]
         _, _, gap_open, gap_ext = self.scoring
         if gap_open != gap_ext:
-            res = native.align_batch(
-                self.windows, self.adapters, pairs, self.scoring,
+            # The engine copies the sequences it is given into one buffer:
+            # only those these jobs name (a middle-phase batch of a few
+            # jobs would otherwise copy every read).
+            windows, wi = _named(self.windows, pairs[:, 0])
+            adapters, ai = _named(self.adapters, pairs[:, 1])
+            return native.align_batch(
+                windows, adapters, np.column_stack([wi, ai]), self.scoring,
                 entry=('align_simd_scores' if self._score_only
-                       else 'align_simd_batch'))
-            if self._score_only:
-                out['raw_score'][todo] = res[:, 4]
-                out['read_start'][todo] = res[:, 0]
-                self._score_lanes[todo] = True
-                return
-            for c, f in enumerate(native.FIELDS):
-                out[f][todo] = res[:, c]
-            return
-        for k, (w, a) in zip(todo, pairs):
+                       else 'align_simd_batch'), n_threads=n_threads)
+        res = np.zeros((len(pairs), 9), dtype=np.int64)
+        for k, (w, a) in enumerate(pairs):
             r = spec.align_linear(self.windows[w], self.adapters[a],
                                   self.scoring)
-            for f in native.FIELDS:
-                out[f][k] = getattr(r, f)
+            res[k, :len(native.FIELDS)] = [getattr(r, f)
+                                           for f in native.FIELDS]
+        return res
 
-    def _table(self, tables, side, rung, chunks):
+    def _scatter_host(self, todo, res, out):
+        """Scatters host rows into out.  Full results, except that the
+        native score-only entry point (a score-only mode) fills only
+        raw_score and the degenerate marker: those lanes join the score
+        set, so that survivors re-run through the exact path."""
+        if self._score_only and self.scoring[2] != self.scoring[3]:
+            out['raw_score'][todo] = res[:, 4]
+            out['read_start'][todo] = res[:, 0]
+            self._score_lanes[todo] = True
+            return
+        for c, f in enumerate(native.FIELDS):
+            out[f][todo] = res[:, c]
+
+    def _table(self, tables, side, rung, chunks, chunk):
         """The deduplicated table of the sequences that the rung's chunks
         reference, plus one dummy row (a single 'A') that pad lanes use:
         (rows, lens) as host tensors, the host lens, and the map from
-        sequence index to row.  Built once per rung."""
+        sequence index to row.  Built once per rung, and again (with its
+        device copies) when a chunk that joined the rung late, pushed back
+        from the native engine, names a sequence it lacks: the map would
+        send that lane to the dummy row."""
         seqs, col = ((self.windows, 0) if side == 'w'
                      else (self.adapters, 1))
+        if (side, rung) in tables:
+            row_of = tables[(side, rung)][3]
+            if (row_of[self.pairs[chunk, col]] == len(
+                    tables[(side, rung)][2]) - 1).any():
+                for key in [k for k in tables if k[:2] == (side, rung)]:
+                    del tables[key]
         if (side, rung) not in tables:
             seen = np.zeros(len(seqs), dtype=bool)
             seen[self.pairs[np.concatenate(chunks), col]] = True
@@ -516,9 +850,10 @@ class AlignJobs:
             kind = 'gsc'
         else:
             kind = 'sc' if self._score_only else 'st'
-        wtab, wlen, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb])
+        wtab, wlen, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb],
+                                                  chunk)
         atab, alen, alen_host, amap = self._table(tables, 'a', amax,
-                                                  rung_a[amax])
+                                                  rung_a[amax], chunk)
         # Lanes past B are pad lanes, on the dummy rows.
         w_idx = np.full(Bp, wtab.shape[0] - 1, dtype=np.int64)
         a_idx = np.full(Bp, atab.shape[0] - 1, dtype=np.int64)

@@ -21,14 +21,51 @@ sorted longest first, each launch at its own longest read's window rung.
 Lanes do not see each other, so the results are those of one launch; a
 set that fits one launch at its longest read's rung runs in one, as in the
 JAX package.
+
+Routing (porechop_tpu/ops/middle.py:44-66): phases.
+find_adapters_in_read_middles uses this runner when the first replay
+round's padded cells clear the planner's hybrid threshold (the rule that
+sends any launch to the device), or when PORECHOP_TPU_MIDDLE_DEVICE=1
+forces it; =0 forces the host rounds (AlignJobs, whose size route then
+decides per launch).  Under PORECHOP_TPU_FORCE_HOST the replay is always
+on the host.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from . import dispatch, engine_v2, kernels
+
+
+def replay_mode() -> str:
+    """'device', 'host', or 'auto' (the threshold rule)."""
+    v = os.environ.get('PORECHOP_TPU_MIDDLE_DEVICE', '').strip()
+    if v == '1':
+        return 'device'
+    if v == '0':
+        return 'host'
+    return 'auto'
+
+
+def should_use_device(n_lanes: int, max_len: int, max_alen: int) -> bool:
+    """Whether a replay set of n_lanes reads (the longest max_len, the
+    adapters up to max_alen) replays on the device entries: by
+    PORECHOP_TPU_MIDDLE_DEVICE, else when one round's padded cells clear
+    dispatch._HYBRID_CELLS, exactly when round 0 itself would have sent
+    such a launch to the device.  Never under PORECHOP_TPU_FORCE_HOST."""
+    if dispatch.force_host():
+        return False
+    mode = replay_mode()
+    if mode != 'auto':
+        return mode == 'device'
+    lb = dispatch._bucket_len(max_len)
+    amax = dispatch._bucket_adapter_len(max_alen)
+    cells = dispatch._bucket_lanes(n_lanes) * (lb + 1) * amax
+    return cells >= dispatch._HYBRID_CELLS
 
 
 class _Launch:

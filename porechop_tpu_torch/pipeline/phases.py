@@ -23,9 +23,10 @@ from ..adapters import (ADAPTERS, make_full_native_barcode_adapter,
                         make_new_full_rapid_barcode_adapter,
                         make_old_full_rapid_barcode_adapter)
 from ..ops import spec
-from ..ops.dispatch import AlignJobs, seqan_pct_vec
+from ..ops import middle
+from ..ops.dispatch import (AlignJobs, score_path_available, seqan_pct_vec,
+                            stats_path_active)
 from ..ops.kernels import score_prefilter_coef, supports
-from ..ops.middle import ReplayRunner
 from ..utils.fastx import load_fasta_or_fastq
 from ..utils.text import bold_underline, int_to_str, print_table, red
 from .model import Read
@@ -180,7 +181,7 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
             coef = score_prefilter_coef(adapter_threshold,
                                         *scoring_scheme_vals)
             if (not exact_scores and coef > 0
-                    and supports(scoring_scheme_vals)):
+                    and score_path_available(scoring_scheme_vals)):
                 # Prefilter pass: per-group max SCORE via the score-only
                 # kernels (~2x the stat-carrying pass); a group whose best
                 # score is below coef * its adapter length provably has
@@ -559,8 +560,8 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
         read_count, n_ad, lambda k: k // max(n_ad, 1), print_dest,
         enabled=verbosity == 1,
         line_of=(lambda r: r) if threads == 1 else (lambda r: r + 1))
-    # The bitless stats/score kernels take every scheme the kernels take.
-    stats_only = supports(scoring_scheme_vals)
+    stats_only = stats_path_active(scoring_scheme_vals,
+                                   prefilter=middle_threshold)
     if n_ad and read_count:
         pairs0 = np.column_stack([
             np.repeat(np.arange(read_count, dtype=np.int64), n_ad),
@@ -647,11 +648,19 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
         apply_hit(ri, ai, rs, re, fp0[ri, ai])
         pend.append((ri, ai))           # re-align same adapter, now masked
 
-    while pend and not supports(scoring_scheme_vals):
-        # Schemes the kernels refuse replay in host rounds
-        # (porechop_tpu/pipeline/phases.py:651-666): each round aligns every
-        # in-flight read's next job through AlignJobs, whose route the
-        # scheme chooses; the decisions are the device loop's below.
+    # The device replay takes a replay set that clears the planner's
+    # hybrid threshold under a scheme the kernels take
+    # (porechop_tpu/pipeline/phases.py:608-613); the rest replays in host
+    # rounds.
+    use_device_replay = bool(pend) and supports(scoring_scheme_vals) and \
+        middle.should_use_device(
+            len(pend), max(len(masked[ri]) for ri, _ in pend),
+            max((len(a) for a in a_code_list), default=1))
+    while pend and not use_device_replay:
+        # Host rounds (porechop_tpu/pipeline/phases.py:651-666): each round
+        # aligns every in-flight read's next job through AlignJobs, whose
+        # route the scheme and the launch size choose; the decisions are
+        # the device loop's below.
         res = AlignJobs([masked[ri] for ri, _ in pend], a_code_list,
                         np.column_stack([
                             np.arange(len(pend), dtype=np.int64),
@@ -672,8 +681,9 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
         # Device-resident replay (ops/middle.py): the replay set's masked
         # reads upload ONCE; every round ships only (lane, adapter row,
         # mask scalars) down and the 7-tuple fields back.
-        runner = ReplayRunner([masked[ri] for ri, _ in pend], a_code_list,
-                              scoring_scheme_vals, device=device)
+        runner = middle.ReplayRunner([masked[ri] for ri, _ in pend],
+                                     a_code_list, scoring_scheme_vals,
+                                     device=device)
         lane_ri = [ri for ri, _ in pend]
         lane_ai = np.array([ai for _, ai in pend], np.int32)
         active = np.ones(len(pend), bool)

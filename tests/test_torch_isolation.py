@@ -50,7 +50,8 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
     """In a fresh interpreter where importing jax or porechop_tpu fails,
     the port imports every module and aligns on the CPU: on the kernels'
     plain versions over two device entries, on the native host engine
-    (built from the port's own sources) and on the linear spec."""
+    (built from the port's own sources), on the linear spec and on the v1
+    engine; importing the package applies its allocator tuning."""
     code = '\n'.join([
         'import sys',
         "sys.modules['jax'] = None",
@@ -58,7 +59,8 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
         'import numpy as np',
         'import porechop_tpu_torch.cli',
         'from porechop_tpu_torch import native',
-        'from porechop_tpu_torch.ops import dispatch, spec',
+        'from porechop_tpu_torch.ops import dispatch, engine_v1, spec',
+        'from porechop_tpu_torch.utils import malloc_tune',
         'from porechop_tpu_torch.parallel import mesh',
         "w = [spec.encode('TTTAATGTACTTCGTTCAGTTACGTATTGCTGGG')]",
         "a = [spec.encode('AATGTACTTCGTTCAGTTACGTATTGCT')]",
@@ -67,6 +69,10 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
         "                           device='cpu,cpu').run()",
         "    assert r['full_pct'][0] == 100.0, (scheme, r)",
         "assert native.library()._name.startswith(str(native.BUILD_DIR))",
+        "r = engine_v1.align_batch(np.zeros((1, 8), np.int8), [8],",
+        "                          np.zeros((1, 4), np.int8), [4])",
+        "assert r['matches'][0] == 4, r",
+        "assert malloc_tune._done",
         "loaded = [k for k, v in sys.modules.items() if v is not None",
         "          and k.split('.')[0] in ('jax', 'porechop_tpu')]",
         'assert not loaded, loaded',
