@@ -4,9 +4,11 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three DP kernels from porechop_tpu_torch/csrc/, holds each
-against its plain PyTorch version on the card at the shapes the trimming
-path gives it (and times both), then runs the trimmer end to end through
+It builds the three DP kernels and the trace-bit walk from
+porechop_tpu_torch/csrc/, holds each against its plain PyTorch version on
+the card at the shapes the trimming path gives it (the walk on the bits of
+the trace-bit kernel; and times both), then runs the trimmer end to end
+through
 porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - 8,192 synthetic 10 kb reads, in memory and streamed (--stream 2048);
 - the long-read set (2,560 reads of 8-200 kb, read N50 40 kb), in memory
@@ -14,7 +16,9 @@ porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - 8,192 natively barcoded 10 kb reads (synth_barcoded), binned with -b,
   in memory and streamed (--stream 4096).
 Each run must write the output FASTQ (or bins) and the stdout transcript
-of the JAX package (by SHA-256) and launch every kernel, and the long-read
+of the JAX package (by SHA-256) and launch every kernel, the walk once per
+trace-bit launch on the same device (in every run below too), and the
+long-read
 runs must cut at least one trace-bit launch into column chunks
 (kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
 torch.distributed ranks sharing the card (two `python -m
@@ -43,8 +47,11 @@ the card; the replay keeps the trace-bit kernel).  Every run prints its
 wall, reads/s, peak device memory per card and jobs and padded cells per
 route.  After the runs, every kernel is held against its plain version at
 every (lanes, L, A) that any on-card run launched it at (the two-rank
-runs' included) and the first checks did not cover.  The script prints its
-own wall before the result.  The last line of stdout is the result: {"ok": true,
+runs' included) and the first checks did not cover, the walk at every
+trace-bit shape the runs walked.  Then the dry-run entry points
+(porechop_tpu_torch/entry.py): entry() on the card against the CPU, and
+dryrun_multichip(2) on cuda:0,cuda:0.  The script prints its own wall
+before the result.  The last line of stdout is the result: {"ok": true,
 "device": {...}}; before it, one {"kernels": [...]} line.  Any failure
 raises and exits non-zero without a result line.  It writes only under
 build/ (kernels, the native engine and the work directories under
@@ -165,6 +172,12 @@ def recording(name, fn):
     return call
 for name in ('forward_score', 'forward_stats', 'forward_tiled'):
     setattr(kernels, name, recording(name, getattr(kernels, name)))
+walk = kernels.walk
+def walking(bits, *rest):
+    shapes.setdefault('walk', set()).add(
+        (bits.shape[1], bits.shape[2], bits.shape[0]))
+    return walk(bits, *rest)
+kernels.walk = walking
 runpy.run_module('porechop_tpu_torch', run_name='__main__', alter_sys=True)
 print(json.dumps({'peak_bytes': max(
     torch.cuda.max_memory_allocated(k)
@@ -230,6 +243,21 @@ KERNELS = {
                  96),
                 ('adapter rung 128, coverage only', 32, 131072, 128)]),
 }
+
+
+# The walk (csrc/dp_walk.cu) after the trace-bit forward, held against its
+# plain version on the bits that forward_tiled makes of _inputs at the
+# forward's shape: these first, then every forward shape the runs walked.
+WALK = dict(
+    source='porechop_tpu_torch/csrc/dp_walk.cu',
+    replaces='porechop_tpu/ops/engine_v2.py:252 _traceback_impl',
+    replaces_also=['porechop_tpu/native/traceback.cpp'],
+    shapes=[('phase 2 end windows', 16384, 150, 32),
+            ('10 kb middle, adapter rung 48', 512, 10240, 48),
+            ('barcoded middle, adapter rung 96', 512, 10240, 96),
+            ('middle replay, rung 262,144', 128, 262144, 32)])
+# Every kernel whose launches a run counts.
+ALL_KERNELS = [*KERNELS, 'walk']
 
 
 def _inputs(B, L, A, seed):
@@ -325,6 +353,48 @@ def check_kernels(kernels, specs=KERNELS, seed=0):
             del x, got, want
         results[name] = rows
     return results
+
+
+def _walk_bound(walk):
+    """Least time for a walk: each walked byte read once (one a move),
+    cell_i, cell_j and the two flags read (10 bytes a lane), the 40-byte
+    aggregates written, over the memory rate; no arithmetic to speak of.
+    The kernel is bound instead by the chain of dependent loads of its
+    longest lane, so that lane's moves come with it."""
+    moves = walk[:, 2].long()
+    nbytes = int(moves.sum()) + 50 * walk.shape[0]
+    return nbytes / MEM_BPS * 1e3, int(moves.max())
+
+
+def check_walk(kernels, shapes, seed=200):
+    """The walk against walk_plain on the trace bits of forward_tiled at
+    each forward shape (what, B, L, A), exact, and both timed."""
+    rows = []
+    for m, (what, B, L, A) in enumerate(shapes):
+        x = _inputs(B, L, A, seed=seed + m)
+        bits, _, ci, cj, vf, hf = kernels.forward_tiled(*x, *SCHEME)
+        got = kernels.walk(bits, ci, cj, vf, hf)
+        want = kernels.walk_plain(bits, ci, cj, vf, hf)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err != 0:
+            raise AssertionError('walk disagrees with its plain version at '
+                                 '%s (%d x %d x %d): max |err| %d'
+                                 % (what, B, L, A, err))
+        ms = _time_ms(lambda: kernels.walk(bits, ci, cj, vf, hf))
+        plain_ms = _time_ms(lambda: kernels.walk_plain(bits, ci, cj, vf, hf),
+                            reps=1)
+        bound_ms, moves = _walk_bound(got)
+        rows.append(dict(what=what, lanes=B, L=L, A=A, moves=moves,
+                         walked_bytes=int(got[:, 2].long().sum()), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by='bytes', max_abs_err=err))
+        print('%-15s %-30s %6d x %5d x %3d  kernel %9.3f ms  plain %9.3f ms'
+              '  bound %.3g ms (bytes)  longest lane %d moves  max|err| %d'
+              % ('walk', what, B, L, A, ms, plain_ms, bound_ms, moves, err),
+              flush=True)
+        del x, bits, got, want
+    return rows
 
 
 def make_input(what, work, reads, reads_sha):
@@ -435,6 +505,7 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
         if idle:
             raise AssertionError('%s launched nothing on %s'
                                  % (label, sorted(idle)))
+        _check_walks(label, launches, kernels.DEVICE_LAUNCHES)
     else:
         if any(launches.values()) or routes['device'][0]:
             raise AssertionError('%s launched kernels on the host route: %s'
@@ -444,6 +515,20 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
             raise AssertionError('%s allocated memory on cards %s'
                                  % (label, held))
     return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
+
+
+def _check_walks(label, launches, by_device=None):
+    """The walk launched once per trace-bit launch (each on its device
+    entry, which DEVICE_LAUNCHES counts), in total and on each device."""
+    if launches['walk'] != launches['forward_tiled']:
+        raise AssertionError('%s: %d walks for %d trace-bit launches'
+                             % (label, launches['walk'],
+                                launches['forward_tiled']))
+    for (name, dev), n in (by_device or {}).items():
+        if name == 'forward_tiled' and by_device[('walk', dev)] != n:
+            raise AssertionError('%s: %d walks for %d trace-bit launches on '
+                                 '%s' % (label, by_device[('walk', dev)], n,
+                                         dev))
 
 
 def _check_text(label, d, text, want_sha):
@@ -558,7 +643,8 @@ def run_two_ranks(work, size, shapes, stream=None):
     stats = [json.loads([ln for ln in err.decode().splitlines()
                          if ln.startswith('{"peak_bytes"')][-1])
              for _, err in outs]
-    launches = {k: sum(s_['launches'][k] for s_ in stats) for k in KERNELS}
+    launches = {k: sum(s_['launches'][k] for s_ in stats)
+                for k in ALL_KERNELS}
     for s_ in stats:
         for name, seen in s_['shapes'].items():
             shapes[name].update(tuple(x) for x in seen)
@@ -570,10 +656,11 @@ def run_two_ranks(work, size, shapes, stream=None):
               [s_['launches'] for s_ in stats],
               [s_['routes'] for s_ in stats]), flush=True)
     for r, s_ in enumerate(stats):
-        idle = [k for k in KERNELS if s_['launches'][k] == 0]
+        idle = [k for k in ALL_KERNELS if s_['launches'][k] == 0]
         if idle:
             raise AssertionError('%s: rank %d never launched %s'
                                  % (label, r, idle))
+        _check_walks('%s rank %d' % (label, r), s_['launches'])
     got_out = _sha(d / 'out_v1.fastq')
     if got_out != OUT_SHA[1]:
         raise AssertionError('%s merged output differs from the JAX '
@@ -587,18 +674,24 @@ def run_two_ranks(work, size, shapes, stream=None):
 
 @contextlib.contextmanager
 def recorded_shapes(kernels):
-    """Records the (lanes, L, A) of every call of each kernel wrapper made
-    inside the block, into {kernel: set of shapes}."""
-    shapes = {name: set() for name in KERNELS}
-    saved = {name: getattr(kernels, name) for name in KERNELS}
+    """Records the (lanes, L, A) of every call of each forward wrapper made
+    inside the block, and the (lanes, L1p, A) of the bits of every walk,
+    into {kernel: set of shapes}."""
+    shapes = {name: set() for name in ALL_KERNELS}
+    saved = {name: getattr(kernels, name) for name in ALL_KERNELS}
 
     def recording(name, fn):
         def call(reads, read_lens, adapters, *rest):
             shapes[name].add((*reads.shape, adapters.shape[1]))
             return fn(reads, read_lens, adapters, *rest)
         return call
+
+    def walking(bits, *rest):
+        shapes['walk'].add((bits.shape[1], bits.shape[2], bits.shape[0]))
+        return saved['walk'](bits, *rest)
     for name, fn in saved.items():
-        setattr(kernels, name, recording(name, fn))
+        setattr(kernels, name, recording(name, fn) if name != 'walk'
+                else walking)
     try:
         yield shapes
     finally:
@@ -628,7 +721,7 @@ def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
     runs = entry_runs(cli, kernels, ['--device', entries], inputs)
     for label, launches in runs.items():
         one = one_entry[label.replace(' --device ' + entries, one_flag)]
-        unsplit = [k for k in KERNELS if launches[k] <= one[k]]
+        unsplit = [k for k in ALL_KERNELS if launches[k] <= one[k]]
         if unsplit:
             raise AssertionError('%s: %s launched no more often than on one '
                                  'entry (%s vs %s)' % (label, unsplit,
@@ -641,6 +734,8 @@ def check_launched_shapes(kernels, shapes, timings, seed=100):
     runs launched it at that check_kernels did not already hold, added to
     timings."""
     for name, seen in shapes.items():
+        if name == 'walk':
+            continue
         known = {(r['lanes'], r['L'], r['A']) for r in timings[name]}
         todo = sorted(seen - known)
         print('%s: %d launched shapes to check' % (name, len(todo)),
@@ -649,6 +744,24 @@ def check_launched_shapes(kernels, shapes, timings, seed=100):
             kernels, {name: dict(KERNELS[name], shapes=[
                 ('launched by the runs', *shape) for shape in todo])},
             seed=seed)[name]
+
+
+def check_walked_shapes(kernels, shapes, timings, seed=300):
+    """The walk at every trace-bit forward shape of the runs that
+    check_walk did not already hold, added to timings['walk'], once the
+    walks' own shapes are shown to be those forwards' (every walk followed
+    its forward)."""
+    walked = {(B, kernels.tiled_l1p(L), A)
+              for B, L, A in shapes['forward_tiled']}
+    if shapes['walk'] != walked:
+        raise AssertionError('walks at %s, trace-bit forwards at %s'
+                             % (sorted(shapes['walk'] ^ walked),
+                                sorted(shapes['forward_tiled'])))
+    known = {(r['lanes'], r['L'], r['A']) for r in timings['walk']}
+    todo = sorted(shapes['forward_tiled'] - known)
+    print('walk: %d walked shapes to check' % len(todo), flush=True)
+    timings['walk'] += check_walk(
+        kernels, [('walked by the runs', *shape) for shape in todo], seed)
 
 
 def one_card_runs(cli, kernels, inputs):
@@ -664,8 +777,8 @@ def hybrid_runs(cli, kernels, work, size):
     card, every job on the host route), with the size route made to
     engage (-v 1: every kernel launching, both routes taking jobs) and
     under PORECHOP_TPU_ENGINE=v1 (-v 0, -v 1: the v1 engine on the card,
-    the replay's trace-bit kernel the only launches).  Returns {run
-    label: launches}."""
+    the replay's trace-bit kernel and its walk the only launches).
+    Returns {run label: launches}."""
     from porechop_tpu_torch.ops import dispatch
     runs = {}
     with environment(PORECHOP_TPU_FORCE_HOST='1'):
@@ -759,6 +872,30 @@ def on_card_runs(cli, kernels, shapes):
     return runs
 
 
+def dry_run(kernels):
+    """The dry-run entry points (porechop_tpu_torch/entry.py): the flagship
+    step on the card against the same step on the CPU (the plain
+    versions), then the multi-device dry run on two entries on cuda:0,
+    which checks itself."""
+    from porechop_tpu_torch import entry
+    t0 = time.perf_counter()
+    fn, args = entry.entry()
+    got = fn(*args)
+    want = fn(*(x.cpu() for x in args))
+    for g, w in zip(got, want):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError('entry() on the card differs from the CPU')
+    kernels.reset_launches()
+    entry.dryrun_multichip(2, 'cuda:0,cuda:0')
+    launches = dict(kernels.LAUNCHES)
+    idle = [k for k in ALL_KERNELS if not launches[k]]
+    if idle:
+        raise AssertionError('the dry run never launched %s' % idle)
+    _check_walks('dry run', launches, kernels.DEVICE_LAUNCHES)
+    print('dry run (entry, dryrun_multichip(2) on cuda:0,cuda:0): %.2f s, '
+          'launches %s' % (time.perf_counter() - t0, launches), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -794,12 +931,15 @@ def main():
                                                        - t0), flush=True)
 
     timings = check_kernels(kernels)
+    timings['walk'] = check_walk(kernels, WALK['shapes'])
     with recorded_shapes(kernels) as shapes:
         runs = on_card_runs(cli, kernels, shapes)
     check_launched_shapes(kernels, shapes, timings)
+    check_walked_shapes(kernels, shapes, timings)
+    dry_run(kernels)
 
     line = []
-    for name, spec_ in KERNELS.items():
+    for name, spec_ in [*KERNELS.items(), ('walk', WALK)]:
         primary = timings[name][0]
         by_run = {label: n[name] for label, n in runs.items()}
         line.append(dict(

@@ -40,7 +40,7 @@ Device entries (resolve_devices): each launch's padded lanes split,
 contiguous and as even as possible, over the entries (parallel/mesh.py
 launch_shards), which may name one device more than once.  The tables are
 held once per (rung, device); every entry's forward is enqueued before any
-entry's walk, the walks step together (engine_v2.traceback_shards), and
+entry's walk (engine_v2.traceback_shards, one walk kernel per entry), and
 the shards are harvested in order, so the results are those of one entry.
 """
 
@@ -78,9 +78,10 @@ _A_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 # (porechop_tpu/ops/dispatch.py:51-55, :551).  0, the default, turns each
 # off.  The H100's measured break-even (breakeven_torch.py: NVIDIA H100
 # 80GB HBM3, 700.00 W, 8 host cores) was 1.35e7 cells for the bitless
-# modes and none or 8.2e8 for a trace-bit launch with its walk, and a
-# merge price of 2.75e7; paired runs at those values showed no gain over
-# both off (PERF.md section 6), so they are not defaults.
+# modes and, while the walk was plain torch, none or 8.2e8 for a
+# trace-bit launch with its walk (1.06e7-1.21e7 with the walk kernel),
+# and a merge price of 2.75e7; paired runs at those values showed no gain
+# over both off (PERF.md section 6), so they are not defaults.
 _HYBRID_CELLS = int(os.environ.get('PORECHOP_TPU_HYBRID_CELLS', 0))
 _MERGE_CELLS = int(os.environ.get('PORECHOP_TPU_MERGE_CELLS', 0))
 
@@ -193,8 +194,10 @@ def _pow2_lanes(budget: int, lb: int, amax: int) -> int:
 
 def bits_lanes(lb: int, amax: int) -> int:
     """Lanes per trace-bit launch at window rung lb and adapter rung amax:
-    its bits (one byte per cell) under _CELL_BUDGET, and the walker's flat
-    bit index lanes * L1p * A below 2^31."""
+    its bits (one byte per cell) under _CELL_BUDGET, and lanes * L1p * A
+    below 2^31, the JAX package's bound for its walker's int32 flat index
+    (the port's walk indexes in 64 bits; the bound keeps the launch
+    shapes, and with them the launch counts, the JAX package's)."""
     per = _pow2_lanes(_CELL_BUDGET, lb, amax)
     l1p = kernels.tiled_l1p(lb)
     while per > _MIN_LANES and per * l1p * amax >= 2 ** 31:
@@ -526,8 +529,9 @@ class AlignJobs:
             rung_a.setdefault(amax, []).append(chunk)
         tables = {}
         # The native batch runs on a worker thread from before the first
-        # launch to after the last harvest: a trace-bit launch walks on
-        # this thread, and the engine's ctypes call drops the GIL.
+        # launch to after the last harvest, which waits on this thread for
+        # the launches' device work; the engine's ctypes call drops the
+        # GIL.
         small = (np.concatenate([c for _, _, c in small_meta])
                  if small_meta else None)
         with ThreadPoolExecutor(max_workers=1) as pool:

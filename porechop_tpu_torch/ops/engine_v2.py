@@ -1,15 +1,12 @@
 """The device-side pieces around the DP kernels: the fused gathers from
-deduplicated window/adapter tables, the trace-bit walker, the finishers and
+deduplicated window/adapter tables, the trace-bit walk, the finishers and
 the per-group reductions.
 
 Counterpart of the parts of porechop_tpu/ops/engine_v2.py on the trimming
-path, in plain PyTorch on the device the tensors lie on.  The forwards
-themselves are ops/kernels.py.  Window tables travel unpacked: the JAX
-package packed codes two or four to a byte only to spare a slow host link.
-
-Bit layout per cell (uint8): bit0 H_EXT, bit1 V_EXT, bit2 DIAG, bit3 MAX_V,
-bit4 EQ (read base == adapter base).  The complementary choices (H_OPEN,
-V_OPEN, MAX_H) are the cleared states.
+path, in plain PyTorch on the device the tensors lie on.  The forwards and
+the walk themselves are ops/kernels.py.  Window tables travel unpacked: the
+JAX package packed codes two or four to a byte only to spare a slow host
+link.
 """
 
 from __future__ import annotations
@@ -18,120 +15,27 @@ import numpy as np
 import torch
 
 from . import kernels
-from .kernels import B_DIAG, B_EQ, B_HEXT, B_MAXV, B_VEXT
-
-# Moves per walker step between checks of "any lane still walking".
-TB_UNROLL = 8
 
 
 def traceback(bits, cell_i, cell_j, vflag, hflag):
-    """Vectorised traceback over the trace bits: one move per lane per
-    step, replicating SeqAn's GapsLeft walker (porechop_tpu/ops/engine_v2
-    _traceback_impl).  Returns (B, 10) int32 per-lane reverse-walk
+    """Traceback over the trace bits, replicating SeqAn's GapsLeft walker
+    (porechop_tpu/ops/engine_v2 _traceback_impl) in one launch of
+    kernels.walk.  Returns (B, 10) int32 per-lane reverse-walk
     aggregates: i0, j0 (cell where the walk stopped), n_path, matches,
     rd_tmin/rd_tmax and ad_tmin/ad_tmax (first/last reverse-step index
     holding a read / adapter base, -1 when none), s_ar_rev (adapter bases
     before the last read column), s_ra_rev (read bases before the last
     adapter column)."""
-    return traceback_shards([(bits, cell_i, cell_j, vflag, hflag)])[0]
+    return kernels.walk(bits, cell_i, cell_j, vflag, hflag)
 
 
 def traceback_shards(shards):
-    """traceback of several launches at once, one per device entry
-    (shards: a list of traceback's arguments), each walked on its own
-    device.  Every launch still walking takes TB_UNROLL moves before any
-    is checked, so the check that waits on one card leaves the others
-    working.  Returns the list of (B, 10) aggregates."""
-    walks = [_Walk(*shard) for shard in shards]
-    live = [w for w in walks if w.walking()]
-    while live:
-        for w in live:
-            w.steps(TB_UNROLL)
-        live = [w for w in live if w.walking()]
-    return [w.result() for w in walks]
-
-
-class _Walk:
-    """The walker state of one launch's lanes (tensors on its device)."""
-
-    def __init__(self, bits, cell_i, cell_j, vflag, hflag):
-        A, B, L1 = bits.shape
-        dev = bits.device
-        self.flat = bits.reshape(-1)
-        self.lane_off = torch.arange(B, dtype=torch.int64, device=dev) * L1
-        self.plane = B * L1
-        self.i = cell_i.to(torch.int64)
-        self.j = cell_j.to(torch.int64)
-        inside = (self.i > 0) & (self.j > 0)
-        zero = torch.zeros(B, dtype=torch.int64, device=dev)
-        self.mode = torch.where(vflag & inside, 1,
-                                torch.where(hflag & inside, 2, 0))
-        self.t = zero.clone()
-        self.matches = zero.clone()
-        self.rd_tmin, self.rd_tmax, self.ad_tmin, self.ad_tmax = (
-            zero - 1 for _ in range(4))
-        self.s_ar_rev = zero.clone()
-        self.s_ra_rev = zero.clone()
-
-    def walking(self) -> bool:
-        """Whether any lane is still walking (waits for the device)."""
-        return bool(((self.i > 0) & (self.j > 0)).any())
-
-    def steps(self, n):
-        """Enqueues n moves of every lane; finished lanes stay put."""
-        i, j, mode, t = self.i, self.j, self.mode, self.t
-        matches = self.matches
-        rd_tmin, rd_tmax = self.rd_tmin, self.rd_tmax
-        ad_tmin, ad_tmax = self.ad_tmin, self.ad_tmax
-        s_ar_rev, s_ra_rev = self.s_ar_rev, self.s_ra_rev
-        for _ in range(n):
-            act = (i > 0) & (j > 0)
-            # Finished lanes read a harmless in-bounds cell; act masks them.
-            tv = self.flat[(i - 1).clamp_min(0) * self.plane + self.lane_off
-                           + j]
-            hx = (tv & B_HEXT) != 0
-            vx = (tv & B_VEXT) != 0
-            dg = (tv & B_DIAG) != 0
-            mv = (tv & B_MAXV) != 0
-
-            disp = mode == 0
-            go_diag = disp & dg
-            go_vert = (mode == 1) | (disp & ~dg & mv)
-            go_hori = (mode == 2) | (disp & ~dg & ~mv)
-            new_mode = torch.where(go_vert & (i != 1) & vx, 1,
-                                   torch.where(go_hori & (j != 1) & hx, 2,
-                                               0))
-            # A column holds a read base for D/H moves, an adapter base
-            # for D/V moves.
-            has_rd = act & (go_diag | go_hori)
-            has_ad = act & (go_diag | go_vert)
-            matches = matches + (act & go_diag & ((tv & B_EQ) != 0))
-            first_rd = has_rd & (rd_tmin < 0)
-            rd_tmin = torch.where(first_rd, t, rd_tmin)
-            rd_tmax = torch.where(has_rd, t, rd_tmax)
-            s_ar_rev = torch.where(first_rd, torch.where(go_diag, i - 1, i),
-                                   s_ar_rev)
-            first_ad = has_ad & (ad_tmin < 0)
-            ad_tmin = torch.where(first_ad, t, ad_tmin)
-            ad_tmax = torch.where(has_ad, t, ad_tmax)
-            s_ra_rev = torch.where(first_ad, torch.where(go_diag, j - 1, j),
-                                   s_ra_rev)
-
-            i = i - (act & (go_diag | go_vert)).long()
-            j = j - (act & (go_diag | go_hori)).long()
-            mode = torch.where(act, new_mode, mode)
-            t = t + act
-        self.i, self.j, self.mode, self.t = i, j, mode, t
-        self.matches = matches
-        self.rd_tmin, self.rd_tmax = rd_tmin, rd_tmax
-        self.ad_tmin, self.ad_tmax = ad_tmin, ad_tmax
-        self.s_ar_rev, self.s_ra_rev = s_ar_rev, s_ra_rev
-
-    def result(self):
-        return torch.stack([self.i, self.j, self.t, self.matches,
-                            self.rd_tmin, self.rd_tmax, self.ad_tmin,
-                            self.ad_tmax, self.s_ar_rev, self.s_ra_rev],
-                           dim=1).to(torch.int32)
+    """traceback of several launches, one per device entry (shards: a list
+    of traceback's arguments), each walked on its own device.  On a card
+    each walk is enqueued behind its forward and nothing waits until the
+    caller harvests; on the CPU the plain version walks each in turn.
+    Returns the list of (B, 10) aggregates."""
+    return [kernels.walk(*shard) for shard in shards]
 
 
 def finish_v2(walk, best_sc, cell_i, cell_j, read_lens, adapter_lens):

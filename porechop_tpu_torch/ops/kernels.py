@@ -23,6 +23,12 @@ each lane into column chunks, one warp each, after a proven warm-up, so
 that it fills the card (split_plan, card_warps, csrc/dp_tiled.cu), and a
 small second kernel there folds the chunks' scouts.
 
+Beside them, the walk of a trace-bit launch (walk, csrc/dp_walk.cu: one
+thread per lane, counterpart of the XLA loop
+porechop_tpu/ops/engine_v2._traceback_impl) folds each lane's traceback
+from its elected cell into ten aggregates on the card, so that nothing
+waits for the host between a trace-bit forward and its harvest.
+
 A wrapper runs its plain version when the tensors it is given lie on the
 CPU, launches its kernel on the CUDA device they lie on (under that
 device's context and on its current stream), and raises for anything
@@ -66,6 +72,9 @@ _PAY_G_BIAS = 1 << 14      # stats payload: mat * 2^15 + (g + 2^14)
 _PAY_MAT = 1 << 15
 _OKEY = 1 << 24            # earliest-opener key of the plain stats H scan
 
+# Trace byte of a cell: H_EXT, V_EXT, DIAG, MAX_V and EQ (read base ==
+# adapter base); the complementary choices (H_OPEN, V_OPEN, MAX_H) are the
+# cleared states.
 B_HEXT, B_VEXT, B_DIAG, B_MAXV, B_EQ = 1, 2, 4, 8, 16
 
 # forward_tiled's column split (split_plan): the least chunk, in warm-ups.
@@ -74,7 +83,8 @@ PART_INTS = 5              # ints per (chunk, lane) partial scout (csrc/)
 
 # Launches of each kernel since the counter was last reset.  A wrapper adds
 # one where it launches its kernel, and nowhere else.
-LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0}
+LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0,
+            'walk': 0}
 # The same by (kernel, device), e.g. ('forward_tiled', 'cuda:1'), reset with
 # LAUNCHES.
 DEVICE_LAUNCHES = collections.Counter()
@@ -85,7 +95,7 @@ TILED_CALLS = collections.Counter()
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = {'forward_score': 'dp_score.cu', 'forward_stats': 'dp_stats.cu',
-           'forward_tiled': 'dp_tiled.cu'}
+           'forward_tiled': 'dp_tiled.cu', 'walk': 'dp_walk.cu'}
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -208,11 +218,14 @@ def bind(path, name: str):
     pdp_tiled_warps(A, int *warps) as its attribute `warps`."""
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, 'pdp_' + name)
-    n_int, n_out = {'forward_score': (7, 1), 'forward_stats': (7, 4),
-                    'forward_tiled': (10, 7)}[name]
-    # reads, read_lens, adapters, adapter_lens; the ints; the outputs; the
-    # stream.
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
+    # The forwards: reads, read_lens, adapters, adapter_lens; the ints; the
+    # outputs; the stream.  The walk: bits, cell_i, cell_j, vflag, hflag;
+    # B, L1p; the output; the stream.
+    n_in, n_int, n_out = {'forward_score': (4, 7, 1),
+                          'forward_stats': (4, 7, 4),
+                          'forward_tiled': (4, 10, 7),
+                          'walk': (5, 2, 1)}[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p] * (n_out + 1))
     fn.restype = ctypes.c_int
     if name == 'forward_tiled':
@@ -254,17 +267,24 @@ def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
         raise NotImplementedError(
             '%s: adapters longer than %d bp are not supported by the CUDA '
             'kernel' % (name, MAX_A))
+    _call(name, (reads, read_lens, adapters, adapter_lens), ints, outs)
+
+
+def _call(name, ins, ints, outs):
+    """Launches kernel `name` on the device of ins[0], under its context
+    and on its current stream, and counts the launch; raises on a non-zero
+    return."""
     fn = _lib(name)
-    with _on(reads.device):
-        stream = torch.cuda.current_stream(reads.device).cuda_stream
-        rc = fn(reads.data_ptr(), read_lens.data_ptr(), adapters.data_ptr(),
-                adapter_lens.data_ptr(), *ints,
+    dev = ins[0].device
+    with _on(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ins), *ints,
                 *(None if o is None else o.data_ptr() for o in outs), stream)
     if rc != 0:
         raise RuntimeError('%s: kernel launch failed with code %d' % (name,
                                                                       rc))
     LAUNCHES[name] += 1
-    DEVICE_LAUNCHES[(name, str(reads.device))] += 1
+    DEVICE_LAUNCHES[(name, str(dev))] += 1
 
 
 def _check(reads, read_lens, adapters, adapter_lens):
@@ -361,7 +381,50 @@ def forward_tiled(reads, read_lens, adapters, adapter_lens,
                 (B, L, A, L1p, match, mismatch, gap_open, gap_ext, chunk,
                  warm), (bits, best, ci, cj, vf, hf, part))
         TILED_CALLS[(B, L, A, nch)] += 1
-    return bits, best, ci, cj, vf != 0, hf != 0
+    # The kernel writes each flag as 0 or 1, a valid bool byte.
+    return bits, best, ci, cj, vf.view(torch.bool), hf.view(torch.bool)
+
+
+WALK_OUTS = 10             # aggregates per lane of walk
+
+
+def walk(bits, cell_i, cell_j, vflag, hflag):
+    """The traceback of every lane of a trace-bit launch from its elected
+    cell (forward_tiled's outputs: bits (A, B, L1p) uint8, cell_i, cell_j
+    (B,) int32, vflag, hflag (B,) bool or uint8), folded into (B, 10)
+    int32 aggregates (engine_v2.traceback lists them).  On a card the
+    launch is enqueued on the current stream and nothing waits for it, so
+    the kernel trusts cell_i <= A and cell_j < L1p, as forward_tiled makes
+    them: checking values on the card would wait for it."""
+    if not _check_walk(bits, cell_i, cell_j, vflag, hflag):
+        return walk_plain(bits, cell_i, cell_j, vflag, hflag)
+    B = bits.shape[1]
+    out = torch.empty((B, WALK_OUTS), dtype=torch.int32, device=bits.device)
+    if B:
+        _call('walk', (bits, cell_i, cell_j, vflag, hflag),
+              (B, bits.shape[2]), (out,))
+    return out
+
+
+def _check_walk(bits, cell_i, cell_j, vflag, hflag):
+    if bits.dim() != 3:
+        raise ValueError('bits must be (A, B, L1p), got %s' % (bits.shape,))
+    B = bits.shape[1]
+    for t, dts in ((bits, (torch.uint8,)), (cell_i, (torch.int32,)),
+                   (cell_j, (torch.int32,)),
+                   (vflag, (torch.bool, torch.uint8)),
+                   (hflag, (torch.bool, torch.uint8))):
+        if t.dtype not in dts:
+            raise TypeError('expected %s, got %s' % (dts[0], t.dtype))
+        if t is not bits and t.shape != (B,):
+            raise ValueError('cell_i, cell_j, vflag and hflag must be (B,)')
+        if t.device != bits.device:
+            raise ValueError('all inputs must lie on one device')
+        if not t.is_contiguous():
+            raise ValueError('inputs must be contiguous')
+    if bits.device.type not in ('cpu', 'cuda'):
+        raise ValueError('unsupported device %s' % bits.device)
+    return bits.device.type == 'cuda'
 
 
 def _decode_stats(best, ci, cj, pay, read_lens, adapter_lens):
@@ -557,3 +620,101 @@ def forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
     """Plain PyTorch version of forward_tiled."""
     return _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
                   gap_open, gap_ext, 'bitmap', tiled_l1p(reads.shape[1]))
+
+
+# Moves of every lane that walk_plain enqueues between its checks of "any
+# lane still walking".
+TB_UNROLL = 8
+
+
+def walk_plain(bits, cell_i, cell_j, vflag, hflag):
+    """Plain PyTorch version of walk: one move of every lane per step of a
+    few tensor ops, TB_UNROLL steps between checks that wait for the
+    device."""
+    w = _PlainWalk(bits, cell_i, cell_j, vflag, hflag)
+    while w.walking():
+        w.steps(TB_UNROLL)
+    return w.result()
+
+
+class _PlainWalk:
+    """walk_plain's state of one launch's lanes (tensors on its device)."""
+
+    def __init__(self, bits, cell_i, cell_j, vflag, hflag):
+        A, B, L1 = bits.shape
+        dev = bits.device
+        self.flat = bits.reshape(-1)
+        self.lane_off = torch.arange(B, dtype=torch.int64, device=dev) * L1
+        self.plane = B * L1
+        self.i = cell_i.to(torch.int64)
+        self.j = cell_j.to(torch.int64)
+        inside = (self.i > 0) & (self.j > 0)
+        zero = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.mode = torch.where((vflag != 0) & inside, 1,
+                                torch.where((hflag != 0) & inside, 2, 0))
+        self.t = zero.clone()
+        self.matches = zero.clone()
+        self.rd_tmin, self.rd_tmax, self.ad_tmin, self.ad_tmax = (
+            zero - 1 for _ in range(4))
+        self.s_ar_rev = zero.clone()
+        self.s_ra_rev = zero.clone()
+
+    def walking(self) -> bool:
+        """Whether any lane is still walking (waits for the device)."""
+        return bool(((self.i > 0) & (self.j > 0)).any())
+
+    def steps(self, n):
+        """Enqueues n moves of every lane; finished lanes stay put."""
+        i, j, mode, t = self.i, self.j, self.mode, self.t
+        matches = self.matches
+        rd_tmin, rd_tmax = self.rd_tmin, self.rd_tmax
+        ad_tmin, ad_tmax = self.ad_tmin, self.ad_tmax
+        s_ar_rev, s_ra_rev = self.s_ar_rev, self.s_ra_rev
+        for _ in range(n):
+            act = (i > 0) & (j > 0)
+            # Finished lanes read a harmless in-bounds cell; act masks them.
+            tv = self.flat[(i - 1).clamp_min(0) * self.plane + self.lane_off
+                           + j]
+            hx = (tv & B_HEXT) != 0
+            vx = (tv & B_VEXT) != 0
+            dg = (tv & B_DIAG) != 0
+            mv = (tv & B_MAXV) != 0
+
+            disp = mode == 0
+            go_diag = disp & dg
+            go_vert = (mode == 1) | (disp & ~dg & mv)
+            go_hori = (mode == 2) | (disp & ~dg & ~mv)
+            new_mode = torch.where(go_vert & (i != 1) & vx, 1,
+                                   torch.where(go_hori & (j != 1) & hx, 2,
+                                               0))
+            # A column holds a read base for D/H moves, an adapter base
+            # for D/V moves.
+            has_rd = act & (go_diag | go_hori)
+            has_ad = act & (go_diag | go_vert)
+            matches = matches + (act & go_diag & ((tv & B_EQ) != 0))
+            first_rd = has_rd & (rd_tmin < 0)
+            rd_tmin = torch.where(first_rd, t, rd_tmin)
+            rd_tmax = torch.where(has_rd, t, rd_tmax)
+            s_ar_rev = torch.where(first_rd, torch.where(go_diag, i - 1, i),
+                                   s_ar_rev)
+            first_ad = has_ad & (ad_tmin < 0)
+            ad_tmin = torch.where(first_ad, t, ad_tmin)
+            ad_tmax = torch.where(has_ad, t, ad_tmax)
+            s_ra_rev = torch.where(first_ad, torch.where(go_diag, j - 1, j),
+                                   s_ra_rev)
+
+            i = i - (act & (go_diag | go_vert)).long()
+            j = j - (act & (go_diag | go_hori)).long()
+            mode = torch.where(act, new_mode, mode)
+            t = t + act
+        self.i, self.j, self.mode, self.t = i, j, mode, t
+        self.matches = matches
+        self.rd_tmin, self.rd_tmax = rd_tmin, rd_tmax
+        self.ad_tmin, self.ad_tmax = ad_tmin, ad_tmax
+        self.s_ar_rev, self.s_ra_rev = s_ar_rev, s_ra_rev
+
+    def result(self):
+        return torch.stack([self.i, self.j, self.t, self.matches,
+                            self.rd_tmin, self.rd_tmax, self.ad_tmin,
+                            self.ad_tmax, self.s_ar_rev, self.s_ra_rev],
+                           dim=1).to(torch.int32)

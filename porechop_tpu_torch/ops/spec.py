@@ -1,7 +1,8 @@
 """The pieces of the reference aligner's specification that the pipeline
 uses: Dna5 encoding, the percent-identity round trip, the DP's
-minus-infinity, and the executable specification of linear schemes
-(gap_open == gap_ext), which is how they are aligned (align_linear).
+minus-infinity, the executable specification of linear schemes
+(gap_open == gap_ext), which is how they are aligned (align_linear), and
+that of Gotoh schemes (align_affine), which the dry run checks against.
 
 The full executable specification (both host aligners and the derivation of
 SeqAn's tie rules) lives with the JAX package in porechop_tpu/ops/spec.py;
@@ -90,6 +91,100 @@ def align_linear(window, adapter, scoring) -> AlignResult:
     if len(r) == 0 or len(a) == 0:
         return AlignResult(-1, -1, -1, -1, 0, 0, 0, 0)
     return _align_traceback_linear(r, a, match, mismatch, gap_open)
+
+
+def align_affine(window, adapter, scoring=(3, -6, -5, -2)) -> AlignResult:
+    """One job under a Gotoh scheme (gap_open != gap_ext) by the full
+    trace-bit matrix and SeqAn's walk, step for step: the executable
+    specification (porechop_tpu/ops/spec.py align_traceback), O(Lr La) in
+    Python, which the dry run (entry.py) holds one lane against.  Inputs
+    as align_linear's."""
+    match, mismatch, open_, ext = (int(x) for x in scoring)
+    if open_ == ext:
+        raise ValueError('scoring scheme %s is linear' % (tuple(scoring),))
+    r = np.asarray(window, dtype=np.int64)
+    a = np.asarray(adapter, dtype=np.int64)
+    lr, la = len(r), len(a)
+    if lr == 0 or la == 0:
+        return AlignResult(-1, -1, -1, -1, 0, 0, 0, 0)
+    m = np.zeros((la + 1, lr + 1), dtype=np.int64)
+    v = np.full((la + 1, lr + 1), NEG, dtype=np.int64)
+    h = np.full((la + 1, lr + 1), NEG, dtype=np.int64)
+    bits = np.zeros((la + 1, lr + 1), dtype=np.uint8)
+    for i in range(1, la + 1):
+        sub = np.where(r == a[i - 1], match, mismatch)
+        for j in range(1, lr + 1):
+            h_ext, h_open = h[i, j - 1] + ext, m[i, j - 1] + open_
+            hval, hbit = (h_ext, H_EXT) if h_ext >= h_open else (h_open,
+                                                                  H_OPEN)
+            v_ext, v_open = v[i - 1, j] + ext, m[i - 1, j] + open_
+            vval, vbit = (v_ext, V_EXT) if v_ext >= v_open else (v_open,
+                                                                  V_OPEN)
+            gap, mbit = (vval, MAX_V) if vval >= hval else (hval, MAX_H)
+            diag = m[i - 1, j - 1] + sub[j - 1]
+            if diag >= gap:
+                m[i, j], bits[i, j] = diag, DIAG | hbit | vbit
+            else:
+                m[i, j], bits[i, j] = gap, mbit | hbit | vbit
+            v[i, j], h[i, j] = vval, hval
+    best = m[la, 0]
+    bi, bj = la, 0
+    for j in range(1, lr):
+        if m[la, j] > best:
+            best, bi, bj = m[la, j], la, j
+    for i in range(0, la + 1):
+        if m[i, lr] > best:
+            best, bi, bj = m[i, lr], i, lr
+    # At the best cell SeqAn prefers ending in a gap, vertical first
+    # (dp_algorithm_impl.h:1354-1369), and then keeps only that gap's bits.
+    tv = int(bits[bi, bj])
+    if v[bi, bj] == best:
+        tv = (tv & ~DIAG) | MAX_V
+    elif h[bi, bj] == best:
+        tv = (tv & ~DIAG) | MAX_H
+    if tv & MAX_V:
+        tv &= V_EXT | V_OPEN | MAX_V
+    elif tv & MAX_H:
+        tv &= H_EXT | H_OPEN | MAX_H
+    moves = _traceback_moves_affine(bits, bi, bj, tv)
+    read_s = ''.join(chr(b) for b in _decode_bytes(r))
+    adapter_s = ''.join(chr(b) for b in _decode_bytes(a))
+    return _assemble(read_s, adapter_s, moves, bi, bj, lr, la, int(best))
+
+
+def _traceback_moves_affine(bits, i, j, tv):
+    """SeqAn's GapsLeft walk (dp_traceback_impl.h) from cell (i, j) whose
+    trace value is tv; the move list in traceback (end-first) order."""
+    moves = []
+    while i > 0 and j > 0 and tv != 0:
+        if tv & DIAG:
+            moves.append('D')
+            i, j = i - 1, j - 1
+        elif tv & MAX_V and tv & V_EXT:
+            while (not tv & V_OPEN or tv & V_EXT) and i != 1:
+                moves.append('V')
+                i -= 1
+                tv = int(bits[i, j])
+            moves.append('V')
+            i -= 1
+        elif tv & MAX_V and tv & V_OPEN:
+            moves.append('V')
+            i -= 1
+        elif tv & MAX_H and tv & H_EXT:
+            while (not tv & H_OPEN or tv & H_EXT) and j != 1:
+                moves.append('H')
+                j -= 1
+                tv = int(bits[i, j])
+            moves.append('H')
+            j -= 1
+        elif tv & MAX_H and tv & H_OPEN:
+            moves.append('H')
+            j -= 1
+        else:
+            break
+        tv = int(bits[i, j])
+    moves.append(('END', i, j))
+    return moves
 
 
 def _stats_from_gapped(read_row: list, adapter_row: list,

@@ -54,10 +54,10 @@ def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
     on dev.  kind: 'gm' (per-group best fraction) or 'gsc' (per-group max
     score), both with groups = (g_idx, n_groups); 'st' (per-lane stats);
     'sc' (per-lane score); 'res' (trace-bit forward, then the walk).  Every
-    entry's forward is enqueued before any entry's walk, and the walks step
-    together (engine_v2.traceback_shards).  Returns, per entry with lanes,
-    in lane order, the engine_v2.fused_gather_* result; for 'res', (walk,
-    best, cell_i, cell_j)."""
+    entry's forward is enqueued before any entry's walk, each walk on its
+    entry's device (engine_v2.traceback_shards).  Returns, per entry with
+    lanes, in lane order, the engine_v2.fused_gather_* result; for 'res',
+    (walk, best, cell_i, cell_j)."""
     shards = []
     for (lo, hi), dev in zip(split_lanes(len(w_idx), len(devices)),
                              devices):

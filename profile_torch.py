@@ -16,7 +16,8 @@ device synchronise, and the peak device memory), and under torch.profiler
 total device time, and every kernel of csrc/).  A streamed run's phases 2
 and 3 sum over its chunks; what the wall holds besides the phases
 (parsing, writing, text) is `other`.  It prints
-one JSON line per verbosity, with the launches of each kernel by shape;
+one JSON line per verbosity, with the launches of each kernel by shape
+and the device's calls of every kind (memory copies included);
 the idle share is 1 - busy / the unprofiled wall.  The full profiler
 tables go to build/profile/<input>[_stream]/.
 """
@@ -162,13 +163,15 @@ def main(argv=None):
             'peak_device_mib': peak_mib,
             'profiled_wall_s': prof_wall, 'device_busy_s': busy_s,
             'device_idle_share': 1 - busy_s / wall,
+            'kernel_calls': sum(count.values()),
             'top_kernels': [
                 {'name': n[:80], 'ms': us * 1e-3, 'calls': count[n]}
                 for n, us in by_kernel.most_common(12)],
             'dp_kernels': [
                 {'name': n[:80], 'ms': us * 1e-3, 'calls': count[n]}
                 for n, us in by_kernel.most_common()
-                if 'dp_wave_kernel' in n or 'bits_fold_kernel' in n]}),
+                if 'dp_wave_kernel' in n or 'bits_fold_kernel' in n
+                or 'dp_walk_kernel' in n]}),
               flush=True)
     return 0
 

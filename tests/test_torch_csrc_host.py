@@ -11,7 +11,11 @@ launch.  The exported pdp_forward_* functions are then called through
 ctypes on CPU pointers, bound as ops/kernels.py binds them on the card.
 
 What it shows: the kernels' arithmetic, tie rules, tile edges, scouts and
-warp exchanges equal the plain versions on the outputs the walker reads.
+warp exchanges equal the plain versions on the outputs the walker reads;
+the walk (pdp_walk, csrc/dp_walk.cu) equals walk_plain and the JAX
+package's walker (porechop_tpu/ops/engine_v2._traceback, plain XLA on the
+CPU) on the same trace bits, from the JAX forward, the plain forward and
+the host-built split forward, and on random bytes.
 What it cannot show: every barrier runs the warp in lockstep, so it hides
 races (a missing __syncwarp, a shared-memory hazard between warps of a
 block) and anything of the card's compiler; only the card tests
@@ -26,14 +30,16 @@ import shutil
 import subprocess
 import types
 
+import numpy as np
 import pytest
 import torch
 
-from porechop_tpu_torch.ops import kernels
+from porechop_tpu.ops import engine_v2 as jax_engine
+from porechop_tpu_torch.ops import engine_v2, kernels
 
 from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, dp_batch,
-                               one_torch_thread, plan_warm, plant,
-                               split_batch, tiled_diffs, to_torch)
+                               gap_run_batch, one_torch_thread, plan_warm,
+                               plant, split_batch, tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
@@ -362,3 +368,141 @@ def test_host_source_rewrites_launch_and_shared_memory():
     got = _host_source(src)
     assert '<<<' not in got and '__shared__' not in got
     assert '::stub::launch(kern, p, grid, block, smem, stream);' in got
+
+
+# ---------------------------------------------------------------------------
+# The walk
+# ---------------------------------------------------------------------------
+
+def _walk_host(fn, bits, ci, cj, vf, hf):
+    """The host-built pdp_walk on CPU tensors; the output starts as junk,
+    so a lane the kernel does not write shows."""
+    B = bits.shape[1]
+    out = torch.full((B, kernels.WALK_OUTS), -7, dtype=torch.int32)
+    rc = fn(bits.data_ptr(), ci.data_ptr(), cj.data_ptr(), vf.data_ptr(),
+            hf.data_ptr(), B, bits.shape[2], out.data_ptr(), None)
+    assert rc == 0, rc
+    return out
+
+
+def _assert_walks_agree(fn, bits, ci, cj, vf, hf):
+    """The kernel, walk_plain and the JAX walker on the same inputs:
+    exact.  Returns the walk."""
+    bits, ci, cj, vf, hf = (x.contiguous() for x in (bits, ci, cj, vf, hf))
+    got = _walk_host(fn, bits, ci, cj, vf, hf)
+    assert torch.equal(got, kernels.walk_plain(bits, ci, cj, vf, hf))
+    want = np.asarray(jax_engine._traceback(
+        bits.numpy(), ci.numpy(), cj.numpy(), vf.numpy() != 0,
+        hf.numpy() != 0))
+    assert np.array_equal(got.numpy(), want)
+    return got
+
+
+# Read lengths of the walk's lanes: empty, one column, the trace-bit tile's
+# edges, the full window of 2,049 columns.
+WALK_LENS = [0, 1, 2, T - 1, T, T + 1, 2 * T, 1000, 2047, 2048, 2049, 2049]
+
+
+@pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
+@pytest.mark.parametrize('A', [5, 32, 64, 128])
+def test_walk_matches_plain_and_jax(host_kernels, A, scheme):
+    """The walk on the plain forward's bits of lanes 0-2,049 columns long
+    (tile edges, a pad lane of length 0 with adapter length 0, adapter
+    lengths 1 and A, adapter copies to walk along)."""
+    reads, rl, adps, al = dp_batch(A, len(WALK_LENS), 2049, A)
+    rl[:] = WALK_LENS
+    al[0], al[1], al[2], al[-1] = 0, 1, A, A
+    for k in (4, 7, 8, 11):
+        plant(reads, adps, al, k, int(rl[k]) - 3 * k)
+    batch = to_torch(reads, rl, adps, al)
+    bits, _, ci, cj, vf, hf = kernels.forward_tiled_plain(*batch, *scheme)
+    walk = _assert_walks_agree(host_kernels['walk'], bits, ci, cj, vf, hf)
+    assert walk[0].tolist() == [ci[0], cj[0], 0, 0, -1, -1, -1, -1, 0, 0]
+    for k in (4, 7, 8, 11):              # the copies, walked base by base
+        assert walk[k, 3] == al[k], k
+
+
+@pytest.mark.parametrize('seed,B,L,A', [(21, 32, 90, 16), (22, 64, 150, 24),
+                                        (0, 128, 120, 24), (23, 4, 24576, 32)])
+def test_walk_on_jax_bits(host_kernels, seed, B, L, A):
+    """The walk on the JAX forward's bits (its own tie rules and flags),
+    the gap-run lanes included, and 24,576-column windows."""
+    batch = gap_run_batch() if seed == 0 else dp_batch(seed, B, L, A)
+    if L > 2 ** 14:                                 # a hit at the far end
+        reads, rl, adps, al = batch
+        rl[1] = L
+        plant(reads, adps, al, 1, L - 5)
+    bits, _, ci, cj, vf, hf = (torch.from_numpy(np.array(x)) for x in
+                               jax_engine._forward(*batch, *SCHEME))
+    _assert_walks_agree(host_kernels['walk'], bits, ci, cj,
+                        vf.to(torch.uint8), hf.to(torch.uint8))
+
+
+@pytest.mark.parametrize('C', [T, 2 * T])
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_walk_on_split_bits(host_kernels, A, C):
+    """The walk on the bits and elected cells of the host-built trace-bit
+    kernel cut into chunks (the fold's cell_i/cell_j), which equal the
+    plain forward's walk."""
+    batch = split_batch(A, C)
+    bits, _, ci, cj, vf, hf = call_tiled(host_kernels['forward_tiled'],
+                                         batch, SCHEME, C,
+                                         plan_warm(A, SCHEME))
+    got = _assert_walks_agree(host_kernels['walk'], bits, ci, cj, vf, hf)
+    assert torch.equal(got, engine_v2.traceback(
+        *(x for k, x in enumerate(kernels.forward_tiled_plain(*batch,
+                                                              *SCHEME))
+          if k != 1)))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_walk_on_random_bytes(host_kernels, seed):
+    """Any bytes are a walk: random trace bytes, cells and flags, so runs
+    start vertical and horizontal, cross the i == 1 and j == 1 rules and
+    stop on row 0 and on column 0, and pad lanes (cell 0) stay put."""
+    rng = np.random.default_rng(seed)
+    A, B, L1p = 40, 300, 256
+    bits = torch.from_numpy(rng.integers(0, 32, (A, B, L1p), dtype=np.uint8))
+    ci = torch.from_numpy(rng.integers(0, A + 1, B).astype(np.int32))
+    cj = torch.from_numpy(rng.integers(0, L1p, B).astype(np.int32))
+    ci[:10] = 0
+    cj[5:15] = 0
+    vf = torch.from_numpy(rng.random(B) < 0.3)
+    hf = torch.from_numpy(rng.random(B) < 0.3)
+    walk = _assert_walks_agree(host_kernels['walk'], bits, ci, cj, vf, hf)
+    inside = (ci > 0) & (cj > 0)
+    assert (inside & vf).any() and (inside & ~vf & hf).any()
+    assert ((walk[:, 0] == 0) & inside).any()
+    assert ((walk[:, 1] == 0) & inside).any()
+    assert torch.equal(walk[~inside, :2], torch.stack([ci, cj], 1)[~inside])
+    assert (walk[~inside, 2] == 0).all()
+
+
+def test_walk_wrapper_launches_per_shard(host_kernels, monkeypatch):
+    """kernels.walk's launch path (the kernel bound by bind, the stream,
+    the launch counters) on the host-built kernel: traceback_shards
+    launches one walk per shard, each on its shard's device, and never
+    reaches walk_plain."""
+    monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    batch = to_torch(*dp_batch(31, 40, 300, 24))
+    shards = []
+    for lo, hi in ((0, 25), (25, 40)):
+        out = kernels.forward_tiled_plain(*(x[lo:hi] for x in batch),
+                                          *SCHEME)
+        shards.append((out[0], *out[2:]))
+    want = [kernels.walk_plain(*shard) for shard in shards]
+
+    def refused(*args):
+        raise AssertionError('the plain walker ran')
+    monkeypatch.setattr(kernels, 'walk_plain', refused)
+    monkeypatch.setattr(kernels, '_check_walk', lambda *args: True)
+    kernels.reset_launches()
+    got = engine_v2.traceback_shards(shards)
+    assert kernels.LAUNCHES['walk'] == 2
+    assert kernels.DEVICE_LAUNCHES[('walk', 'cpu')] == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    kernels.reset_launches()

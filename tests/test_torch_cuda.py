@@ -1,8 +1,8 @@
 """Card tests for the PyTorch port: each CUDA kernel against its plain
 PyTorch version on the card (exact: every output is an integer, and the
-bits are compared in the region the walker reads), and the CLI on the card
-against the CPU run.  They skip without a CUDA device; on a machine with
-one run them with
+bits are compared in the region the walker reads), the walk enqueued with
+no host synchronisation, and the CLI on the card against the CPU run.  They
+skip without a CUDA device; on a machine with one run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from porechop_tpu_torch import cli
-from porechop_tpu_torch.ops import dispatch, kernels
+from porechop_tpu_torch.ops import dispatch, engine_v2, kernels
 from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
 
 from .test_torch_cases import (H100_WARPS, MODES, SCHEME, align_jobs,
@@ -62,7 +62,7 @@ def test_kernels_match_plain(card, seed, B, L, A):
         rows, cols = int(al[k]), int(rl[k]) + 1
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_tiled': 1}
+                                'forward_tiled': 1, 'walk': 0}
 
 
 @pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
@@ -118,7 +118,7 @@ def test_score_and_stats_match_plain(card, A, ntiles):
                     kernels.forward_stats(*cpu, *SCHEME)):
         assert torch.equal(g.cpu(), w)
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_tiled': 0}
+                                'forward_tiled': 0, 'walk': 0}
 
 
 @pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
@@ -175,6 +175,74 @@ def test_forced_chunks_match_plain(card, A, C):
     torch.cuda.synchronize()
     assert tiled_diffs([g.cpu() for g in got],
                        kernels.forward_tiled_plain(*cpu, *SCHEME), cpu) == []
+
+
+def _walk_shards(card, A, chunk):
+    """Two shards of split_batch(A, chunk or 256) lanes on the card, their
+    bits from the kernel cut into `chunk`-column chunks (None: the
+    wrapper's own plan), as traceback_shards takes them, with their CPU
+    copies."""
+    cpu = split_batch(A, chunk or 256)
+    shards = []
+    for half in (slice(0, 6), slice(6, None)):
+        dev = [t[half].contiguous().to(card) for t in cpu]
+        if chunk is None:
+            out = kernels.forward_tiled(*dev, *SCHEME)
+        else:
+            out = call_tiled(kernels._lib('forward_tiled'), dev, SCHEME,
+                             chunk, plan_warm(A, SCHEME),
+                             torch.cuda.current_stream().cuda_stream)
+        shards.append((out[0], *out[2:]))
+    torch.cuda.synchronize()
+    return shards, [tuple(t.cpu() for t in shard) for shard in shards]
+
+
+@pytest.mark.parametrize('chunk', [None, 256, 512], ids=['unsplit', '256',
+                                                          '512'])
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_walk_matches_plain(card, A, chunk):
+    """The walk kernel on two cuda:0 entries' shards against walk_plain on
+    the same bits: one launch per shard, exact."""
+    shards, cpu = _walk_shards(card, A, chunk)
+    kernels.reset_launches()
+    got = engine_v2.traceback_shards(shards)
+    assert kernels.LAUNCHES['walk'] == 2
+    assert kernels.DEVICE_LAUNCHES[('walk', 'cuda:0')] == 2
+    for g, shard in zip(got, cpu):
+        assert torch.equal(g.cpu(), kernels.walk_plain(*shard))
+
+
+def test_walk_does_not_synchronise(card, monkeypatch):
+    """traceback_shards enqueues one walk per shard and returns: no call
+    that waits for the card (torch's sync debug mode raises on one), and
+    the plain walker never runs; the harvest then equals walk_plain."""
+    shards, cpu = _walk_shards(card, 48, None)
+    kernels._lib('walk')                # built before the checked span
+    plain = kernels.walk_plain
+
+    def refused(*args):
+        raise AssertionError('the plain walker ran on the card')
+    monkeypatch.setattr(kernels, 'walk_plain', refused)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = engine_v2.traceback_shards(shards)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    for g, shard in zip(got, cpu):
+        assert torch.equal(g.cpu(), plain(*shard))
+
+
+def test_walk_raises_for_a_bad_input_on_the_card(card):
+    """A CUDA tensor launches the kernel or raises: flags of another type,
+    or inputs on two devices, never reach the plain version."""
+    shards, _ = _walk_shards(card, 24, None)
+    bits, ci, cj, vf, hf = shards[0]
+    kernels.reset_launches()
+    with pytest.raises(TypeError):
+        kernels.walk(bits, ci, cj, vf.int(), hf)
+    with pytest.raises(ValueError, match='one device'):
+        kernels.walk(bits, ci.cpu(), cj, vf, hf)
+    assert kernels.LAUNCHES['walk'] == 0
 
 
 def test_forward_tiled_raises_past_128_rows_on_the_card(card):
@@ -263,12 +331,13 @@ def test_refused_scheme_launches_nothing_on_the_card(card, scheme):
 
 def test_native_batch_runs_beside_the_walks(card, monkeypatch):
     """The size route's native batch runs on its worker thread while the
-    trace-bit launches walk on the caller's, and the result equals the
-    route off (threshold 0).  All chunks are 32 lanes: 200,000 rung-150
-    jobs (116k cells each, under the threshold of 2e6) for the native
-    engine, 512 rung-2048 jobs (2.1e6 cells each) for the card; the share
-    model is kept from diverting by a slow host rate."""
-    from porechop_tpu_torch.ops import engine_v2
+    caller's thread enqueues the trace-bit launches and their walks and
+    waits for them at the harvest (the span of AlignJobs._run_device, from
+    the first launch to the last harvest's synchronisation), and the
+    result equals the route off (threshold 0).  All chunks are 32 lanes:
+    200,000 rung-150 jobs (116k cells each, under the threshold of 2e6)
+    for the native engine, 512 rung-2048 jobs (2.1e6 cells each) for the
+    card; the share model is kept from diverting by a slow host rate."""
     monkeypatch.setattr(dispatch, '_CELL_BUDGET', 32 * 151 * 24)
     monkeypatch.setattr(dispatch, '_HYBRID_CELLS', 2_000_000)
     monkeypatch.setattr(dispatch.AlignJobs, '_HOST_CELLS_S', 1.0)
@@ -283,9 +352,9 @@ def test_native_batch_runs_beside_the_walks(card, monkeypatch):
         w[100:130] = adapters[1]
     pairs = np.column_stack([np.arange(len(windows)),
                              [0] * 200_000 + [1] * 512])
-    spans = {'native': [], 'walk': []}
+    spans = {'native': [], 'device': []}
     native_batch = dispatch.AlignJobs._native_batch
-    walk = engine_v2.traceback_shards
+    run_device = dispatch.AlignJobs._run_device
 
     def timed(kind, fn):
         def call(*a, **k):
@@ -297,13 +366,15 @@ def test_native_batch_runs_beside_the_walks(card, monkeypatch):
         return call
     monkeypatch.setattr(dispatch.AlignJobs, '_native_batch',
                         timed('native', native_batch))
-    monkeypatch.setattr(engine_v2, 'traceback_shards', timed('walk', walk))
+    monkeypatch.setattr(dispatch.AlignJobs, '_run_device',
+                        timed('device', run_device))
     dispatch.reset_routes()
     got = dispatch.AlignJobs(windows, adapters, pairs, device='cuda').run()
     assert dispatch.ROUTES['native'][0] == 200_000
     assert dispatch.ROUTES['device'][0] == 512
     (n0, n1), = spans['native']
-    assert any(w0 < n1 and n0 < w1 for w0, w1 in spans['walk']), spans
+    (d0, d1), = spans['device']
+    assert d0 < n1 and n0 < d1, spans
     monkeypatch.setattr(dispatch, '_HYBRID_CELLS', 0)
     want = dispatch.AlignJobs(windows, adapters, pairs, device='cuda').run()
     for f in want:

@@ -40,7 +40,7 @@ def test_source_has_no_jax_or_porechop_tpu_import():
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'profile_torch.py',
-                                    'time_kernels.py'])
+                                    'time_kernels.py', 'breakeven_torch.py'])
 def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
     """The scripts run on the card's machine, which has no jax."""
     assert not _bad_imports(PKG.parent / script)
@@ -51,7 +51,8 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
     the port imports every module and aligns on the CPU: on the kernels'
     plain versions over two device entries, on the native host engine
     (built from the port's own sources), on the linear spec and on the v1
-    engine; importing the package applies its allocator tuning."""
+    engine, and runs the dry run (entry.py) on two CPU entries; importing
+    the package applies its allocator tuning."""
     code = '\n'.join([
         'import sys',
         "sys.modules['jax'] = None",
@@ -73,6 +74,8 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
         "                          np.zeros((1, 4), np.int8), [4])",
         "assert r['matches'][0] == 4, r",
         "assert malloc_tune._done",
+        'from porechop_tpu_torch import entry',
+        "entry.dryrun_multichip(2, 'cpu')",
         "loaded = [k for k, v in sys.modules.items() if v is not None",
         "          and k.split('.')[0] in ('jax', 'porechop_tpu')]",
         'assert not loaded, loaded',

@@ -136,6 +136,29 @@ def test_wrappers_reject_bad_inputs():
         kernels.forward_tiled(reads[None], rl, adps, al, *SCHEME)
 
 
+def test_walk_rejects_bad_inputs():
+    """kernels.walk checks what it is given before it chooses a version:
+    types, shapes, contiguity, one device, and a device it serves."""
+    bits, _, ci, cj, vf, hf = kernels.forward_tiled(
+        *to_torch(*dp_batch(2, 6, 40, 8)), *SCHEME)
+    with pytest.raises(TypeError):
+        kernels.walk(bits.int(), ci, cj, vf, hf)
+    with pytest.raises(TypeError):
+        kernels.walk(bits, ci.long(), cj, vf, hf)
+    with pytest.raises(ValueError):
+        kernels.walk(bits, ci, cj[:3], vf, hf)
+    with pytest.raises(ValueError):
+        kernels.walk(bits[0], ci, cj, vf, hf)
+    with pytest.raises(ValueError, match='contiguous'):
+        kernels.walk(bits.transpose(0, 1).contiguous().transpose(0, 1), ci,
+                     cj, vf, hf)
+    with pytest.raises(ValueError, match='unsupported device'):
+        kernels.walk(*(t.to('meta') for t in (bits, ci, cj, vf, hf)))
+    assert torch.equal(kernels.walk(bits, ci, cj, vf.to(torch.uint8),
+                                    hf.to(torch.uint8)),
+                       kernels.walk(bits, ci, cj, vf, hf))
+
+
 def test_score_prefilter_coef_matches_jax():
     for thr in (50.0, 75.0, 85.0, 90.0, 96.0):
         for scheme in (SCHEME, (1, -1, -2, -1), (0, -1, -2, -1)):
