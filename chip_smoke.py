@@ -4,11 +4,16 @@ NVIDIA GPU.  Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three DP kernels and the trace-bit walk from
+It builds the DP kernels and the trace-bit walk from
 porechop_tpu_torch/csrc/, holds each against its plain PyTorch version on
-the card at the shapes the trimming path gives it (the walk on the bits of
-the trace-bit kernel; and times both), then runs the trimmer end to end
-through
+the card at the shapes the trimming path gives it and times it: score,
+stats, the trace-bit forward (forward_tiled, whose bits the K1/K2 checks
+read), the trimming path's trace-bit call (forward_walk: the forward with
+each lane walked inside its launch) and the standalone walk on the
+forward's bits.  A time under ~0.1 ms comes from torch.profiler's CUDA
+kernel durations over the same launches, printed beside the CUDA-event
+time, which a launch that short bounds by the host's enqueue rate.  Then
+it runs the trimmer end to end through
 porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - 8,192 synthetic 10 kb reads, in memory and streamed (--stream 2048);
 - the long-read set (2,560 reads of 8-200 kb, read N50 40 kb), in memory
@@ -16,11 +21,12 @@ porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - 8,192 natively barcoded 10 kb reads (synth_barcoded), binned with -b,
   in memory and streamed (--stream 4096).
 Each run must write the output FASTQ (or bins) and the stdout transcript
-of the JAX package (by SHA-256) and launch every kernel, the walk once per
-trace-bit launch on the same device (in every run below too), and the
-long-read
-runs must cut at least one trace-bit launch into column chunks
-(kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
+of the JAX package (by SHA-256) and launch every kernel of the path
+(score, stats and forward_walk), every trace-bit call walking inside its
+own launch on its own device (no forward_tiled and no standalone walk
+launches, in every run below too; a one-tile call allocates no trace
+bits), and the long-read runs must cut at least one trace-bit launch into
+column chunks (kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
 torch.distributed ranks sharing the card (two `python -m
 porechop_tpu_torch` processes, in memory and streamed), whose merged
 output and rank 0's transcript must be the single-process run's.  Then
@@ -47,8 +53,9 @@ the card; the replay keeps the trace-bit kernel).  Every run prints its
 wall, reads/s, peak device memory per card and jobs and padded cells per
 route.  After the runs, every kernel is held against its plain version at
 every (lanes, L, A) that any on-card run launched it at (the two-rank
-runs' included) and the first checks did not cover, the walk at every
-trace-bit shape the runs walked.  Then the dry-run entry points
+runs' included) and the first checks did not cover; at every trace-bit
+shape, forward_walk, forward_tiled (bits, best, cells, flags) and the
+standalone walk on its bits.  Then the dry-run entry points
 (porechop_tpu_torch/entry.py): entry() on the card against the CPU, and
 dryrun_multichip(2) on cuda:0,cuda:0.  The script prints its own wall
 before the result.  The last line of stdout is the result: {"ok": true,
@@ -59,6 +66,7 @@ build/smoke/); it builds the native engine first, as it builds the
 kernels, so that no run's wall holds the g++ build.
 """
 
+import collections
 import contextlib
 import hashlib
 import io
@@ -170,7 +178,8 @@ def recording(name, fn):
         shapes.setdefault(name, set()).add((*reads.shape, adapters.shape[1]))
         return fn(reads, read_lens, adapters, *rest)
     return call
-for name in ('forward_score', 'forward_stats', 'forward_tiled'):
+for name in ('forward_score', 'forward_stats', 'forward_tiled',
+             'forward_walk'):
     setattr(kernels, name, recording(name, getattr(kernels, name)))
 walk = kernels.walk
 def walking(bits, *rest):
@@ -199,7 +208,7 @@ INT32_OPS = 64 * 132 * 1.98e9
 # 2 adds + max (next H), max (M) = 10; stats adds the payload selects and
 # adds (6); the trace byte adds four compares and four ors (8).
 OPS_PER_CELL = {'forward_score': 10, 'forward_stats': 16,
-                'forward_tiled': 18}
+                'forward_tiled': 18, 'forward_walk': 18}
 
 KERNELS = {
     'forward_score': dict(
@@ -243,11 +252,23 @@ KERNELS = {
                  96),
                 ('adapter rung 128, coverage only', 32, 131072, 128)]),
 }
+# The trimming path's trace-bit call: the forward with each lane's walk in
+# the same launches (csrc/dp_walk.cuh run by the kernel's epilogue, or by
+# bits_fold_kernel after a split), at the trace-bit forward's shapes.
+KERNELS['forward_walk'] = dict(
+    source='porechop_tpu_torch/csrc/dp_tiled.cu',
+    replaces='porechop_tpu/ops/kernel_pallas.py:115',
+    replaces_also=['porechop_tpu/ops/kernel_pallas.py:376',
+                   'porechop_tpu/ops/engine_v2.py:252 _traceback_impl'],
+    shapes=KERNELS['forward_tiled']['shapes'])
+# The kernels every on-card trimming run launches.
+PATH_KERNELS = ('forward_score', 'forward_stats', 'forward_walk')
 
 
-# The walk (csrc/dp_walk.cu) after the trace-bit forward, held against its
-# plain version on the bits that forward_tiled makes of _inputs at the
-# forward's shape: these first, then every forward shape the runs walked.
+# The standalone walk (csrc/dp_walk.cu) after the trace-bit forward, held
+# against its plain version on the bits that forward_tiled makes of _inputs
+# at the forward's shape: these first, then every trace-bit shape of the
+# runs.
 WALK = dict(
     source='porechop_tpu_torch/csrc/dp_walk.cu',
     replaces='porechop_tpu/ops/engine_v2.py:252 _traceback_impl',
@@ -258,6 +279,8 @@ WALK = dict(
             ('middle replay, rung 262,144', 128, 262144, 32)])
 # Every kernel whose launches a run counts.
 ALL_KERNELS = [*KERNELS, 'walk']
+# Events time under which a kernel is timed from its CUDA kernel durations.
+CUPTI_BELOW_MS = 0.1
 
 
 def _inputs(B, L, A, seed):
@@ -293,14 +316,67 @@ def _time_ms(fn, reps=None):
     return start.elapsed_time(end) / reps
 
 
+def _cupti_ms(fn, reps=50, tries=3):
+    """The card's time of one call: the durations of the CUDA kernels that
+    reps calls launch, as torch.profiler records them (CUPTI), summed and
+    averaged over the calls, after a warm-up.  Launches back to back are
+    not: the host's enqueue rate bounds their event time from below.  A
+    profile that recorded no kernel (seen once in a long run) is taken
+    again, up to `tries` profiles."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for k in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if times:
+            return sum(times) / reps * 1e-3
+        print('  (profile %d recorded no CUDA kernel)' % (k + 1), flush=True)
+    raise RuntimeError('the profiler recorded no CUDA kernel in %d profiles'
+                       % tries)
+
+
+def _kernel_ms(fn):
+    """(ms, events ms, how ms was taken): the CUDA-event time, or below
+    CUPTI_BELOW_MS the kernel durations of _cupti_ms."""
+    ev = _time_ms(fn)
+    if ev >= CUPTI_BELOW_MS:
+        return ev, ev, 'events'
+    return _cupti_ms(fn), ev, 'cupti'
+
+
+def _once_ms(fn):
+    """(fn(), its device time in ms by CUDA events): one call, no
+    warm-up, for the plain versions, which take tens of milliseconds."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _bound(name, B, L, A, rl, al):
     """Least time for this call: bytes (inputs read once, outputs written
     once) over the memory rate vs the cells this data needs times the
-    minimal ops per cell over the int32 rate."""
+    minimal ops per cell over the int32 rate.  A trace-bit call writes the
+    bits of the walker's region (forward_walk: none on a one-tile launch,
+    whose bits stay on the SM) and 14 bytes a lane (forward_walk: and the
+    40-byte aggregates)."""
     cells = int((rl.long() * al.long()).sum())
-    out_bytes = (int((al.long() * (rl.long() + 1)).sum()) + 14 * B
-                 if name == 'forward_tiled'
-                 else {'forward_score': 4 * B, 'forward_stats': 16 * B}[name])
+    if name in ('forward_tiled', 'forward_walk'):
+        one_tile = name == 'forward_walk' and L + 1 <= 256
+        out_bytes = (0 if one_tile else int((al.long() * (rl.long() + 1))
+                                            .sum())) + 14 * B
+        out_bytes += 40 * B if name == 'forward_walk' else 0
+    else:
+        out_bytes = {'forward_score': 4 * B, 'forward_stats': 16 * B}[name]
     nbytes = B * L + B * A + 8 * B + out_bytes
     t_bytes = nbytes / MEM_BPS * 1e3
     t_ops = cells * OPS_PER_CELL[name] / INT32_OPS * 1e3
@@ -308,9 +384,40 @@ def _bound(name, B, L, A, rl, al):
                                                              'operations')
 
 
+def _row(name, what, B, L, A, timed, plain_ms, bound, err, **extra):
+    """One timed shape: the row the kernels line lists, printed."""
+    ms, ms_events, timing = timed
+    cells, (bound_ms, bound_by) = bound
+    print('%-15s %-30s %6d x %6d x %3d  kernel %9.4f ms (%s; events %.4f)'
+          '  plain %9.3f ms  bound %.4g ms (%s)  max|err| %d%s'
+          % (name, what, B, L, A, ms, timing, ms_events, plain_ms, bound_ms,
+             bound_by, err, ''.join('  %s %s' % kv for kv in extra.items())),
+          flush=True)
+    return dict(what=what, lanes=B, L=L, A=A, cells=cells, ms=ms,
+                ms_events=ms_events, timing=timing, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                **extra)
+
+
+def _max_err(got, want):
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def _bits_err(got, want, rl, al):
+    """Largest |difference| of two trace-bit tensors in the walker's region
+    (rows < adapter_len, columns <= read_len)."""
+    A_, _, L1p = got.shape
+    region = ((torch.arange(A_, device='cuda')[:, None, None]
+               < al[None, :, None])
+              & (torch.arange(L1p, device='cuda')[None, None, :]
+                 <= rl[None, :, None]))
+    return int(((got.int() - want.int()).abs() * region).max())
+
+
 def check_kernels(kernels, specs=KERNELS, seed=0):
     """Each kernel of specs against its plain version at its shapes (by
-    default the main path's)."""
+    default the main path's): exact, and timed."""
     results = {}
     for n, (name, spec_) in enumerate(specs.items()):
         kern = getattr(kernels, name)
@@ -318,39 +425,25 @@ def check_kernels(kernels, specs=KERNELS, seed=0):
         rows = []
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
             x = _inputs(B, L, A, seed=seed + 10 * n + m)
-            got, want = kern(*x, *SCHEME), plain(*x, *SCHEME)
+            got = kern(*x, *SCHEME)
+            want, plain_ms = _once_ms(lambda: plain(*x, *SCHEME))
             torch.cuda.synchronize()
             if name == 'forward_score':
                 got, want = [got], [want]
+            err = 0
             if name == 'forward_tiled':
-                A_, B_, L1p = got[0].shape
-                region = ((torch.arange(A_, device='cuda')[:, None, None]
-                           < x[3][None, :, None])
-                          & (torch.arange(L1p, device='cuda')[None, None, :]
-                             <= x[1][None, :, None]))
-                err = int(((got[0].int() - want[0].int()).abs()
-                           * region).max())
+                err = _bits_err(got[0], want[0], x[1], x[3])
                 got, want = got[1:], want[1:]
-            else:
-                err = 0
-            for g, w in zip(got, want):
-                err = max(err, int((g.long() - w.long()).abs().max()))
+            err = max(err, _max_err(got, want))
             if err != 0:
                 raise AssertionError('%s disagrees with its plain version '
                                      'at %s (%d x %d x %d): max |err| %d'
                                      % (name, what, B, L, A, err))
-            ms = _time_ms(lambda: kern(*x, *SCHEME))
-            plain_ms = _time_ms(lambda: plain(*x, *SCHEME), reps=1)
-            cells, (bound_ms, bound_by) = _bound(name, B, L, A, x[1], x[3])
-            rows.append(dict(what=what, lanes=B, L=L, A=A, cells=cells,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, max_abs_err=err))
-            print('%-15s %-30s %6d x %5d x %3d  kernel %9.3f ms '
-                  '(%.3e cells/s)  plain %9.3f ms  bound %.4f ms (%s)  '
-                  'max|err| %d' % (name, what, B, L, A, ms,
-                                   cells / (ms * 1e-3), plain_ms, bound_ms,
-                                   bound_by, err), flush=True)
-            del x, got, want
+            del got, want
+            rows.append(_row(name, what, B, L, A,
+                             _kernel_ms(lambda: kern(*x, *SCHEME)), plain_ms,
+                             _bound(name, B, L, A, x[1], x[3]), err))
+            del x
         results[name] = rows
     return results
 
@@ -359,41 +452,57 @@ def _walk_bound(walk):
     """Least time for a walk: each walked byte read once (one a move),
     cell_i, cell_j and the two flags read (10 bytes a lane), the 40-byte
     aggregates written, over the memory rate; no arithmetic to speak of.
-    The kernel is bound instead by the chain of dependent loads of its
-    longest lane, so that lane's moves come with it."""
+    The kernel is bound instead by the chain of block loads and moves of
+    its longest lane, so that lane's moves come with it."""
     moves = walk[:, 2].long()
     nbytes = int(moves.sum()) + 50 * walk.shape[0]
     return nbytes / MEM_BPS * 1e3, int(moves.max())
 
 
-def check_walk(kernels, shapes, seed=200):
-    """The walk against walk_plain on the trace bits of forward_tiled at
-    each forward shape (what, B, L, A), exact, and both timed."""
-    rows = []
+def check_trace_bits(kernels, shapes, seed=200, walk_only=False):
+    """At each trace-bit shape (what, B, L, A): forward_tiled against
+    forward_tiled_plain (bits in the walker's region, best, cells, flags),
+    the standalone walk on its bits and forward_walk against walk_plain on
+    the plain bits, exact, each timed.  With walk_only, the walk alone
+    (the main path's shapes, whose forwards check_kernels holds).  Returns
+    {kernel: rows}."""
+    rows = {'forward_tiled': [], 'walk': [], 'forward_walk': []}
     for m, (what, B, L, A) in enumerate(shapes):
         x = _inputs(B, L, A, seed=seed + m)
-        bits, _, ci, cj, vf, hf = kernels.forward_tiled(*x, *SCHEME)
-        got = kernels.walk(bits, ci, cj, vf, hf)
-        want = kernels.walk_plain(bits, ci, cj, vf, hf)
+        (bits_p, best_p, ci_p, cj_p, vf_p, hf_p), fwd_ms = _once_ms(
+            lambda: kernels.forward_tiled_plain(*x, *SCHEME))
+        walk_p, walk_ms = _once_ms(
+            lambda: kernels.walk_plain(bits_p, ci_p, cj_p, vf_p, hf_p))
+        tiled = kernels.forward_tiled(*x, *SCHEME)
+        bits, _, ci, cj, vf, hf = tiled
+        walk = kernels.walk(bits, ci, cj, vf, hf)
+        fused = kernels.forward_walk(*x, *SCHEME)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            raise AssertionError('walk disagrees with its plain version at '
-                                 '%s (%d x %d x %d): max |err| %d'
-                                 % (what, B, L, A, err))
-        ms = _time_ms(lambda: kernels.walk(bits, ci, cj, vf, hf))
-        plain_ms = _time_ms(lambda: kernels.walk_plain(bits, ci, cj, vf, hf),
-                            reps=1)
-        bound_ms, moves = _walk_bound(got)
-        rows.append(dict(what=what, lanes=B, L=L, A=A, moves=moves,
-                         walked_bytes=int(got[:, 2].long().sum()), ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by='bytes', max_abs_err=err))
-        print('%-15s %-30s %6d x %5d x %3d  kernel %9.3f ms  plain %9.3f ms'
-              '  bound %.3g ms (bytes)  longest lane %d moves  max|err| %d'
-              % ('walk', what, B, L, A, ms, plain_ms, bound_ms, moves, err),
-              flush=True)
-        del x, bits, got, want
+        errs = {'forward_tiled': max(
+                    _bits_err(bits, bits_p, x[1], x[3]),
+                    _max_err(tiled[1:], (best_p, ci_p, cj_p, vf_p, hf_p))),
+                'walk': _max_err([walk], [walk_p]),
+                'forward_walk': _max_err(fused,
+                                         (walk_p, best_p, ci_p, cj_p))}
+        for name, err in errs.items():
+            if err != 0:
+                raise AssertionError('%s disagrees with its plain version '
+                                     'at %s (%d x %d x %d): max |err| %d'
+                                     % (name, what, B, L, A, err))
+        bound_ms, moves = _walk_bound(walk)
+        rows['walk'].append(_row(
+            'walk', what, B, L, A,
+            _kernel_ms(lambda: kernels.walk(bits, ci, cj, vf, hf)), walk_ms,
+            (B, (bound_ms, 'bytes')), 0, moves=moves,
+            walked_bytes=int(walk[:, 2].long().sum())))
+        if not walk_only:
+            for name, plain_ms in (('forward_tiled', fwd_ms),
+                                   ('forward_walk', fwd_ms + walk_ms)):
+                kern = getattr(kernels, name)
+                rows[name].append(_row(
+                    name, what, B, L, A, _kernel_ms(lambda: kern(*x, *SCHEME)),
+                    plain_ms, _bound(name, B, L, A, x[1], x[3]), 0))
+        del x, tiled, bits, walk, fused, bits_p, walk_p
     return rows
 
 
@@ -456,11 +565,11 @@ def _routes():
 
 def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     """One in-process run of the trimmer in directory d, on the card.
-    With on_card, every kernel must launch (or, given a set of kernel
-    names, those and no other), and on every device that --device names
-    in argv (without it, on every card: a single process splits over all
-    of them); without on_card, none may, and nothing may be allocated on
-    a card.  Returns (its launches, its trace-bit launch shapes, its
+    With on_card, every kernel of the path must launch (or, given a set
+    of kernel names, those) and no other, on every device that --device
+    names in argv (without it, on every card: a single process splits
+    over all of them), each trace-bit call walking inside its launch;
+    without on_card, none may, and nothing may be allocated on a card.  Returns (its launches, its trace-bit launch shapes, its
     stdout with d's path as <WORKDIR>)."""
     from porechop_tpu_torch.ops import dispatch
     kernels.reset_launches()
@@ -492,11 +601,11 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
         '%s %d, %.4g' % (r, n, c) for r, (n, c) in routes.items()),
           flush=True)
     if on_card:
-        want = set(KERNELS) if on_card is True else set(on_card)
+        want = set(PATH_KERNELS) if on_card is True else set(on_card)
         idle = [k for k in sorted(want) if launches[k] == 0]
         if idle:
             raise AssertionError('%s never launched %s' % (label, idle))
-        extra = [k for k in KERNELS if k not in want and launches[k]]
+        extra = [k for k in ALL_KERNELS if k not in want and launches[k]]
         if extra:
             raise AssertionError('%s launched %s' % (label, extra))
         named = ({'cuda:%d' % k for k in _cards()} if '--device' not in argv
@@ -505,7 +614,8 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
         if idle:
             raise AssertionError('%s launched nothing on %s'
                                  % (label, sorted(idle)))
-        _check_walks(label, launches, kernels.DEVICE_LAUNCHES)
+        _check_walks(label, launches, kernels.DEVICE_LAUNCHES,
+                     kernels.TILED_CALLS)
     else:
         if any(launches.values()) or routes['device'][0]:
             raise AssertionError('%s launched kernels on the host route: %s'
@@ -517,18 +627,25 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
 
 
-def _check_walks(label, launches, by_device=None):
-    """The walk launched once per trace-bit launch (each on its device
-    entry, which DEVICE_LAUNCHES counts), in total and on each device."""
-    if launches['walk'] != launches['forward_tiled']:
-        raise AssertionError('%s: %d walks for %d trace-bit launches'
-                             % (label, launches['walk'],
-                                launches['forward_tiled']))
-    for (name, dev), n in (by_device or {}).items():
-        if name == 'forward_tiled' and by_device[('walk', dev)] != n:
-            raise AssertionError('%s: %d walks for %d trace-bit launches on '
-                                 '%s' % (label, by_device[('walk', dev)], n,
-                                         dev))
+def _check_walks(label, launches, by_device=None, calls=None):
+    """Every trace-bit call walked inside its own launch: forward_walk,
+    never forward_tiled and the standalone walk, on every device
+    (DEVICE_LAUNCHES) and, given the calls by shape (TILED_CALLS), one
+    forward_walk launch a call."""
+    if launches['walk'] or launches['forward_tiled']:
+        raise AssertionError('%s: %d standalone walks and %d forward_tiled '
+                             'launches on the path' % (
+                                 label, launches['walk'],
+                                 launches['forward_tiled']))
+    stray = sorted(dev for (name, dev), n in (by_device or {}).items()
+                   if name in ('walk', 'forward_tiled') and n)
+    if stray:
+        raise AssertionError('%s: a standalone walk or forward_tiled '
+                             'launched on %s' % (label, stray))
+    if calls is not None and sum(calls.values()) != launches['forward_walk']:
+        raise AssertionError('%s: %d trace-bit calls, %d forward_walk '
+                             'launches' % (label, sum(calls.values()),
+                                           launches['forward_walk']))
 
 
 def _check_text(label, d, text, want_sha):
@@ -656,7 +773,7 @@ def run_two_ranks(work, size, shapes, stream=None):
               [s_['launches'] for s_ in stats],
               [s_['routes'] for s_ in stats]), flush=True)
     for r, s_ in enumerate(stats):
-        idle = [k for k in ALL_KERNELS if s_['launches'][k] == 0]
+        idle = [k for k in PATH_KERNELS if s_['launches'][k] == 0]
         if idle:
             raise AssertionError('%s: rank %d never launched %s'
                                  % (label, r, idle))
@@ -675,10 +792,14 @@ def run_two_ranks(work, size, shapes, stream=None):
 @contextlib.contextmanager
 def recorded_shapes(kernels):
     """Records the (lanes, L, A) of every call of each forward wrapper made
-    inside the block, and the (lanes, L1p, A) of the bits of every walk,
-    into {kernel: set of shapes}."""
+    inside the block, and the (lanes, L1p, A) of the bits of every
+    standalone walk, into {kernel: set of shapes}; and counts the
+    forward_walk launches by (one tile, given a trace-bit tensor) into
+    shapes['bits'] (a Counter)."""
     shapes = {name: set() for name in ALL_KERNELS}
+    shapes['bits'] = collections.Counter()
     saved = {name: getattr(kernels, name) for name in ALL_KERNELS}
+    launch = kernels._launch
 
     def recording(name, fn):
         def call(reads, read_lens, adapters, *rest):
@@ -689,14 +810,32 @@ def recorded_shapes(kernels):
     def walking(bits, *rest):
         shapes['walk'].add((bits.shape[1], bits.shape[2], bits.shape[0]))
         return saved['walk'](bits, *rest)
+
+    def launching(name, reads, *rest):
+        if name == 'forward_walk':
+            one_tile = kernels.tiled_l1p(reads.shape[1]) == kernels.TILE_T
+            shapes['bits'][(one_tile, rest[-1][0] is not None)] += 1
+        return launch(name, reads, *rest)
     for name, fn in saved.items():
         setattr(kernels, name, recording(name, fn) if name != 'walk'
                 else walking)
+    kernels._launch = launching
     try:
         yield shapes
     finally:
         for name, fn in saved.items():
             setattr(kernels, name, fn)
+        kernels._launch = launch
+
+
+def check_no_bits_on_one_tile(bits):
+    """Every one-tile forward_walk launch of the runs allocated no trace
+    bits (there was at least one), and every other launch did."""
+    print('forward_walk launches by (one tile, trace-bit tensor): %s'
+          % dict(bits), flush=True)
+    if not bits[(True, False)] or bits[(True, True)] or bits[(False, False)]:
+        raise AssertionError('trace-bit tensors of forward_walk launches by '
+                             '(one tile, allocated): %s' % dict(bits))
 
 
 def entry_runs(cli, kernels, flags, inputs):
@@ -721,7 +860,7 @@ def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
     runs = entry_runs(cli, kernels, ['--device', entries], inputs)
     for label, launches in runs.items():
         one = one_entry[label.replace(' --device ' + entries, one_flag)]
-        unsplit = [k for k in ALL_KERNELS if launches[k] <= one[k]]
+        unsplit = [k for k in PATH_KERNELS if launches[k] <= one[k]]
         if unsplit:
             raise AssertionError('%s: %s launched no more often than on one '
                                  'entry (%s vs %s)' % (label, unsplit,
@@ -731,37 +870,28 @@ def run_entries(cli, kernels, entries, inputs, one_entry, one_flag=''):
 
 def check_launched_shapes(kernels, shapes, timings, seed=100):
     """Each kernel against its plain version at every shape the on-card
-    runs launched it at that check_kernels did not already hold, added to
-    timings."""
-    for name, seen in shapes.items():
-        if name == 'walk':
-            continue
+    runs launched it at that the first checks did not already hold, added
+    to timings: score and stats alone, and at every trace-bit shape
+    forward_tiled, the standalone walk and forward_walk together
+    (check_trace_bits).  No run may have launched the standalone walk."""
+    if shapes['walk']:
+        raise AssertionError('standalone walks at %s' % sorted(shapes['walk']))
+    for name in ('forward_score', 'forward_stats'):
         known = {(r['lanes'], r['L'], r['A']) for r in timings[name]}
-        todo = sorted(seen - known)
+        todo = sorted(shapes[name] - known)
         print('%s: %d launched shapes to check' % (name, len(todo)),
               flush=True)
         timings[name] += check_kernels(
             kernels, {name: dict(KERNELS[name], shapes=[
                 ('launched by the runs', *shape) for shape in todo])},
             seed=seed)[name]
-
-
-def check_walked_shapes(kernels, shapes, timings, seed=300):
-    """The walk at every trace-bit forward shape of the runs that
-    check_walk did not already hold, added to timings['walk'], once the
-    walks' own shapes are shown to be those forwards' (every walk followed
-    its forward)."""
-    walked = {(B, kernels.tiled_l1p(L), A)
-              for B, L, A in shapes['forward_tiled']}
-    if shapes['walk'] != walked:
-        raise AssertionError('walks at %s, trace-bit forwards at %s'
-                             % (sorted(shapes['walk'] ^ walked),
-                                sorted(shapes['forward_tiled'])))
-    known = {(r['lanes'], r['L'], r['A']) for r in timings['walk']}
-    todo = sorted(shapes['forward_tiled'] - known)
-    print('walk: %d walked shapes to check' % len(todo), flush=True)
-    timings['walk'] += check_walk(
-        kernels, [('walked by the runs', *shape) for shape in todo], seed)
+    known = {(r['lanes'], r['L'], r['A']) for r in timings['forward_walk']}
+    todo = sorted((shapes['forward_walk'] | shapes['forward_tiled']) - known)
+    print('trace bits: %d launched shapes to check' % len(todo), flush=True)
+    rows = check_trace_bits(kernels, [('launched by the runs', *shape)
+                                      for shape in todo], seed + 200)
+    for name, got in rows.items():
+        timings[name] += got
 
 
 def one_card_runs(cli, kernels, inputs):
@@ -777,7 +907,7 @@ def hybrid_runs(cli, kernels, work, size):
     card, every job on the host route), with the size route made to
     engage (-v 1: every kernel launching, both routes taking jobs) and
     under PORECHOP_TPU_ENGINE=v1 (-v 0, -v 1: the v1 engine on the card,
-    the replay's trace-bit kernel and its walk the only launches).
+    the replay's trace-bit calls, forward_walk, the only launches).
     Returns {run label: launches}."""
     from porechop_tpu_torch.ops import dispatch
     runs = {}
@@ -804,7 +934,7 @@ def hybrid_runs(cli, kernels, work, size):
     with environment(PORECHOP_TPU_ENGINE='v1'):
         runs.update(run_main_path(cli, kernels, '10 kb v1', work, size,
                                   OUT_SHA, STDOUT_SHA,
-                                  on_card={'forward_tiled'}))
+                                  on_card={'forward_walk'}))
     return runs
 
 
@@ -888,10 +1018,11 @@ def dry_run(kernels):
     kernels.reset_launches()
     entry.dryrun_multichip(2, 'cuda:0,cuda:0')
     launches = dict(kernels.LAUNCHES)
-    idle = [k for k in ALL_KERNELS if not launches[k]]
+    idle = [k for k in PATH_KERNELS if not launches[k]]
     if idle:
         raise AssertionError('the dry run never launched %s' % idle)
-    _check_walks('dry run', launches, kernels.DEVICE_LAUNCHES)
+    _check_walks('dry run', launches, kernels.DEVICE_LAUNCHES,
+                 kernels.TILED_CALLS)
     print('dry run (entry, dryrun_multichip(2) on cuda:0,cuda:0): %.2f s, '
           'launches %s' % (time.perf_counter() - t0, launches), flush=True)
 
@@ -931,11 +1062,12 @@ def main():
                                                        - t0), flush=True)
 
     timings = check_kernels(kernels)
-    timings['walk'] = check_walk(kernels, WALK['shapes'])
+    timings['walk'] = check_trace_bits(kernels, WALK['shapes'],
+                                       walk_only=True)['walk']
     with recorded_shapes(kernels) as shapes:
         runs = on_card_runs(cli, kernels, shapes)
+    check_no_bits_on_one_tile(shapes['bits'])
     check_launched_shapes(kernels, shapes, timings)
-    check_walked_shapes(kernels, shapes, timings)
     dry_run(kernels)
 
     line = []
@@ -948,7 +1080,8 @@ def main():
             replaces_also=spec_['replaces_also'],
             launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=max(r['max_abs_err'] for r in timings[name]),
-            ms=primary['ms'], plain_ms=primary['plain_ms'],
+            ms=primary['ms'], ms_events=primary['ms_events'],
+            timing=primary['timing'], plain_ms=primary['plain_ms'],
             bound_ms=primary['bound_ms'], bound_by=primary['bound_by'],
             library_ms=None, shape=primary['what'],
             shapes=timings[name]))

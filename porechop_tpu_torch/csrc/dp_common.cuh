@@ -55,6 +55,12 @@
 // of the chunks' scouts); ops/kernels.py split_plan picks the chunks so
 // that a launch of few long lanes fills the card.
 //
+// BITS with a walk (dp_tiled.cu pdp_forward_walk): the warp that elects an
+// unsplit lane's cell walks it at once with dp_walk.cuh's body, reusing
+// sbits -- in place when the lane is one tile, whose trace bytes then
+// never leave the SM, else as the staging buffer for the bytes it has just
+// written; bits_fold_kernel walks a split lane.
+//
 // Scouts: the thread holding row adapter_len keeps the last-row leftmost
 // maximum over columns [0, read_len) with a strict > in increasing j; the
 // final-column scout (first strict maximum down column read_len from
@@ -76,6 +82,8 @@
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
+
+#include "dp_walk.cuh"
 
 namespace pdp {
 
@@ -102,6 +110,7 @@ __host__ __device__ constexpr int smem_of(int mode, int amax) {  // per warp
 constexpr int ERR_ADAPTER_TOO_LONG = 100000;
 constexpr int ERR_BAD_L1P = 100001;
 constexpr int ERR_BAD_SPLIT = 100002;
+constexpr int ERR_NULL_OUTPUT = 100003;  // a null output the call writes
 
 // BITS split into column chunks: ints per (chunk, lane) partial scout --
 // last-row score, column and flags, final-column score and key.
@@ -130,6 +139,8 @@ struct Args {
 struct BitsArgs : Args {
   int nch, chunk_cols, warm_cols;  // column chunks of a lane
   int32_t* part;                   // (nch, B, PART_INTS), nch > 1
+  int32_t* walk;                   // (B, WALK_OUTS) walk aggregates, or
+                                   // null: no walk
 };
 
 template <int MODE>
@@ -139,19 +150,31 @@ __device__ __forceinline__ int lane_len(const int32_t* lens, int b, int cap) {
   return min(max(lens[b], 0), cap);
 }
 
+// A trace-bit lane's elected cell, its score and its start state.
+struct Elected {
+  int best, i, j;
+  bool vf, hf;
+};
+
 // The column-against-row election of the trace-bit forward: the
 // final-column scout (score tsc, key (row << 2) | (V flag << 1) | H flag)
 // wins only if strictly better than the last-row scout.
-__device__ __forceinline__ void write_bits_cell(const BitsArgs& p, int b,
-                                                int alen, int rlen, int tsc,
-                                                int tkey, int rsc, int rj,
-                                                int rflags) {
+__device__ __forceinline__ Elected elect_cell(int alen, int rlen, int tsc,
+                                              int tkey, int rsc, int rj,
+                                              int rflags) {
   const bool col_wins = tsc > rsc;
-  p.best[b] = col_wins ? tsc : rsc;
-  p.cell_i[b] = col_wins ? tkey >> 2 : alen;
-  p.cell_j[b] = col_wins ? rlen : rj;
-  p.vflag[b] = col_wins ? (tkey >> 1) & 1 : (rflags >> 1) & 1;
-  p.hflag[b] = col_wins ? tkey & 1 : rflags & 1;
+  const int flags = col_wins ? tkey & 3 : rflags;
+  return Elected{col_wins ? tsc : rsc, col_wins ? tkey >> 2 : alen,
+                 col_wins ? rlen : rj, (flags & 2) != 0, (flags & 1) != 0};
+}
+
+__device__ __forceinline__ void write_cell(const BitsArgs& p, int b,
+                                           const Elected& e) {
+  p.best[b] = e.best;
+  p.cell_i[b] = e.i;
+  p.cell_j[b] = e.j;
+  p.vflag[b] = e.vf ? 1 : 0;
+  p.hflag[b] = e.hf ? 1 : 0;
 }
 
 // One DP cell (i, j), from M(i-1, j-1) = mdiag, M(i-1, j) = mup,
@@ -209,6 +232,9 @@ __device__ __forceinline__ uint8_t col0_byte(int go, int ge) {
   return (uint8_t)((((NEG + ge) >= go) ? 2 : 0) | 4 | 8);
 }
 
+// A BITS warp stages its walk in its trace-byte buffer (sbits).
+static_assert(STAGE_BYTES <= 32 * TILE_T, "the walk's block fits in sbits");
+
 template <int MODE, int AMAX>
 __global__ void __launch_bounds__(32 * warps_of(MODE))
 dp_wave_kernel(ArgsOf<MODE> p) {
@@ -246,6 +272,10 @@ dp_wave_kernel(ArgsOf<MODE> p) {
   const int8_t* adp = p.adapters + (size_t)b * p.A;
   const size_t plane = (size_t)p.B * p.L1p;       // BITS
   uint8_t* lane_bits = BI ? p.bits + (size_t)b * p.L1p : nullptr;
+  // BITS: a lane of one tile that walks in this kernel walks from sbits,
+  // and its trace bytes never reach device memory (p.bits may be null).
+  bool store_bits = false;
+  if constexpr (BI) store_bits = p.walk == nullptr || p.L1p != T;
 
   const int row0 = R * t;              // this thread's first row slot
   const int nt = (alen + R - 1) / R;   // threads that own rows < alen
@@ -391,7 +421,7 @@ dp_wave_kernel(ArgsOf<MODE> p) {
     if constexpr (BI) {
       // Rows < adapter_len, columns [jlo, jhi) rounded up to 16 bytes: a
       // chunk's own columns, which end on a tile edge but in the last chunk.
-      if (own) {
+      if (own && store_bits) {
         const int nq = (jhi - jlo + 15) / 16;
         for (int n = t; n < alen * nq; n += 32) {
           const int i = n / nq, q = n % nq;
@@ -432,25 +462,41 @@ dp_wave_kernel(ArgsOf<MODE> p) {
     const int rflags = __shfl_sync(FULL_MASK, (rvf ? 2 : 0) | (rhf ? 1 : 0),
                                    owner);
     if constexpr (ST) rpay = __shfl_sync(FULL_MASK, rpay, owner);
-    if (t == 0) {
-      if constexpr (BI) {
-        if (p.nch > 1) {       // folded across chunks by bits_fold_kernel
+    if constexpr (BI) {
+      if (p.nch > 1) {         // folded across chunks by bits_fold_kernel
+        if (t == 0) {
           int32_t* q = p.part + ((size_t)k * p.B + b) * PART_INTS;
           q[0] = rsc;
           q[1] = rj;
           q[2] = rflags;
           q[3] = tsc;
           q[4] = tkey;
-        } else {
-          write_bits_cell(p, b, alen, rlen, tsc, tkey, rsc, rj, rflags);
         }
       } else {
-        const bool col_wins = tsc > rsc;
-        p.best[b] = col_wins ? tsc : rsc;
-        p.cell_i[b] = col_wins ? tkey >> 2 : alen;
-        p.cell_j[b] = col_wins ? rlen : rj;
-        p.pay[b] = col_wins ? tpay : rpay;
+        // Every thread holds both scouts, so every thread elects.
+        const Elected e = elect_cell(alen, rlen, tsc, tkey, rsc, rj, rflags);
+        if (t == 0) write_cell(p, b, e);
+        if (p.walk != nullptr) {
+          Walk wk = walk_start(e.i, e.j, e.vf, e.hf);
+          if (p.L1p == T) {
+            // One tile: sbits holds the lane's every trace byte.
+            walk_block(wk, sbits, T, 0, 0);
+          } else {
+            // The warp's own stores of the bytes it now reads back; sbits
+            // is free to stage them.
+            __threadfence_block();
+            __syncwarp();
+            walk_staged<16>(wk, lane_bits, plane, sbits);
+          }
+          if (t == 0) walk_store(wk, p.walk + (size_t)b * WALK_OUTS);
+        }
       }
+    } else if (t == 0) {
+      const bool col_wins = tsc > rsc;
+      p.best[b] = col_wins ? tsc : rsc;
+      p.cell_i[b] = col_wins ? tkey >> 2 : alen;
+      p.cell_j[b] = col_wins ? rlen : rj;
+      p.pay[b] = col_wins ? tpay : rpay;
     }
   }
 }

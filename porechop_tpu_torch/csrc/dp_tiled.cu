@@ -51,6 +51,15 @@
 // does.  Two launches in one call keep the fold deterministic and need no
 // atomics; an unsplit launch (nch = 1) elects in the kernel itself.
 //
+// The walk (pdp_forward_walk).  Where the lane's cell is elected, its warp
+// walks it with the body of dp_walk.cuh, in the same launch: the trace-bit
+// kernel's epilogue for an unsplit lane (from shared memory alone for a
+// one-tile lane, whose trace bytes are then never written: bits may be
+// null), bits_fold_kernel, one warp per lane, for a split one.  A call
+// returns the walk's aggregates in one or two launches, as the trace bits
+// alone took, and bits only the walk read need not outlive it.
+// pdp_forward_tiled is the same call without the walk: bits written.
+//
 // What bounds it on an H100: the instruction rate once a launch holds
 // enough warps, a step being two shuffles, the boundary selects and R cells
 // of integer operations (2,048 lanes at rung 16,384, ~16 warps per SM:
@@ -63,12 +72,16 @@
 
 namespace {
 
-constexpr int FOLD_THREADS = 128;
+constexpr int FOLD_WARPS = 4;
 
-__global__ void __launch_bounds__(FOLD_THREADS)
+// One warp per lane: the fold of its chunks' scouts and the election (by
+// every thread, on the same values), then, with p.walk, its walk.
+__global__ void __launch_bounds__(32 * FOLD_WARPS)
 bits_fold_kernel(pdp::BitsArgs p) {
-  const int b = blockIdx.x * FOLD_THREADS + threadIdx.x;
-  if (b >= p.B) return;
+  extern __shared__ __align__(16) uint8_t stage[];  // STAGE_BYTES a warp
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * FOLD_WARPS + w;
+  if (b >= p.B) return;                // the whole warp
   const int rlen = pdp::lane_len(p.read_lens, b, p.L);
   const int alen = pdp::lane_len(p.adapter_lens, b, p.A);
   const int last = rlen / p.chunk_cols;      // the chunk holding read_len
@@ -84,7 +97,15 @@ bits_fold_kernel(pdp::BitsArgs p) {
     }
   }
   const int32_t* ql = q + last * stride;
-  pdp::write_bits_cell(p, b, alen, rlen, ql[3], ql[4], rsc, rj, rflags);
+  const pdp::Elected e =
+      pdp::elect_cell(alen, rlen, ql[3], ql[4], rsc, rj, rflags);
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (lead) pdp::write_cell(p, b, e);
+  if (p.walk == nullptr) return;
+  pdp::Walk wk = pdp::walk_start(e.i, e.j, e.vf, e.hf);
+  pdp::walk_staged<16>(wk, p.bits + (size_t)b * p.L1p, (size_t)p.B * p.L1p,
+                       stage + w * pdp::STAGE_BYTES);
+  if (lead) pdp::walk_store(wk, p.walk + (size_t)b * pdp::WALK_OUTS);
 }
 
 // One-warp blocks of dp_wave_kernel<BITS, AMAX> that the current device
@@ -105,6 +126,43 @@ int resident_warps(int* warps) {
                                                       smem);
   *warps = per_sm * sms;
   return (int)e;
+}
+
+// The trace-bit call of pdp_forward_tiled and pdp_forward_walk: the
+// kernel, then, for a split launch, the fold; walk null for no walk.
+int forward_bits(const void* reads, const void* read_lens,
+                 const void* adapters, const void* adapter_lens, int B,
+                 int L, int A, int L1p, int match, int mismatch, int gap_open,
+                 int gap_ext, int chunk_cols, int warm_cols, void* bits,
+                 void* best, void* cell_i, void* cell_j, void* vflag,
+                 void* hflag, void* part, void* walk, void* stream) {
+  if (B <= 0) return 0;
+  if (L1p % pdp::TILE_T != 0 || L1p < L + 1) return pdp::ERR_BAD_L1P;
+  if (chunk_cols <= 0 || chunk_cols % pdp::TILE_T != 0 || warm_cols < 0)
+    return pdp::ERR_BAD_SPLIT;
+  pdp::BitsArgs p{pdp::make_args(reads, read_lens, adapters, adapter_lens,
+                                 B, L, A, L1p, match, mismatch, gap_open,
+                                 gap_ext),
+                  L / chunk_cols + 1,        // chunks holding columns 0..L
+                  chunk_cols, warm_cols, static_cast<int32_t*>(part),
+                  static_cast<int32_t*>(walk)};
+  if (p.nch > 1 && part == nullptr) return pdp::ERR_BAD_SPLIT;
+  // Only a one-tile launch that walks keeps its trace bytes on the SM.
+  if (bits == nullptr && (walk == nullptr || L1p != pdp::TILE_T))
+    return pdp::ERR_NULL_OUTPUT;
+  p.bits = static_cast<uint8_t*>(bits);
+  p.best = static_cast<int32_t*>(best);
+  p.cell_i = static_cast<int32_t*>(cell_i);
+  p.cell_j = static_cast<int32_t*>(cell_j);
+  p.vflag = static_cast<uint8_t*>(vflag);
+  p.hflag = static_cast<uint8_t*>(hflag);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = pdp::launch<pdp::BITS>(p, s);
+  if (rc != 0 || p.nch == 1) return rc;
+  const int smem = walk == nullptr ? 0 : FOLD_WARPS * pdp::STAGE_BYTES;
+  bits_fold_kernel<<<(B + FOLD_WARPS - 1) / FOLD_WARPS, 32 * FOLD_WARPS,
+                     smem, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -130,26 +188,27 @@ extern "C" int pdp_forward_tiled(const void* reads, const void* read_lens,
                                  int warm_cols, void* bits, void* best,
                                  void* cell_i, void* cell_j, void* vflag,
                                  void* hflag, void* part, void* stream) {
-  if (B <= 0) return 0;
-  if (L1p % pdp::TILE_T != 0 || L1p < L + 1) return pdp::ERR_BAD_L1P;
-  if (chunk_cols <= 0 || chunk_cols % pdp::TILE_T != 0 || warm_cols < 0)
-    return pdp::ERR_BAD_SPLIT;
-  pdp::BitsArgs p{pdp::make_args(reads, read_lens, adapters, adapter_lens,
-                                 B, L, A, L1p, match, mismatch, gap_open,
-                                 gap_ext),
-                  L / chunk_cols + 1,        // chunks holding columns 0..L
-                  chunk_cols, warm_cols, static_cast<int32_t*>(part)};
-  if (p.nch > 1 && part == nullptr) return pdp::ERR_BAD_SPLIT;
-  p.bits = static_cast<uint8_t*>(bits);
-  p.best = static_cast<int32_t*>(best);
-  p.cell_i = static_cast<int32_t*>(cell_i);
-  p.cell_j = static_cast<int32_t*>(cell_j);
-  p.vflag = static_cast<uint8_t*>(vflag);
-  p.hflag = static_cast<uint8_t*>(hflag);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = pdp::launch<pdp::BITS>(p, s);
-  if (rc != 0 || p.nch == 1) return rc;
-  bits_fold_kernel<<<(B + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
-                     s>>>(p);
-  return (int)cudaGetLastError();
+  return forward_bits(reads, read_lens, adapters, adapter_lens, B, L, A, L1p,
+                      match, mismatch, gap_open, gap_ext, chunk_cols,
+                      warm_cols, bits, best, cell_i, cell_j, vflag, hflag,
+                      part, nullptr, stream);
+}
+
+// pdp_forward_tiled and each lane's walk from its elected cell into walk
+// (B, WALK_OUTS) int32, in the same launches.  bits may be null when L1p
+// is TILE_T (a one-tile launch): its trace bytes stay in shared memory.
+extern "C" int pdp_forward_walk(const void* reads, const void* read_lens,
+                                const void* adapters,
+                                const void* adapter_lens, int B, int L,
+                                int A, int L1p, int match, int mismatch,
+                                int gap_open, int gap_ext, int chunk_cols,
+                                int warm_cols, void* bits, void* best,
+                                void* cell_i, void* cell_j, void* vflag,
+                                void* hflag, void* part, void* walk,
+                                void* stream) {
+  if (B > 0 && walk == nullptr) return pdp::ERR_NULL_OUTPUT;
+  return forward_bits(reads, read_lens, adapters, adapter_lens, B, L, A, L1p,
+                      match, mismatch, gap_open, gap_ext, chunk_cols,
+                      warm_cols, bits, best, cell_i, cell_j, vflag, hflag,
+                      part, walk, stream);
 }

@@ -1,6 +1,7 @@
 """Dry-run entry points of the port (counterpart of the JAX package's
 __graft_entry__.py): entry() is the flagship step that every phase
-launches, the trace-bit forward and its walk, with example inputs on the
+launches, the trace-bit forward and its walk (kernels.forward_walk, one
+call), with example inputs on the
 device; dryrun_multichip() runs one step of each device path of a run with
 its lanes split over several device entries (parallel/mesh.py) and checks
 what comes out.  Both run on the card unless given CPU entries, and never
@@ -21,16 +22,14 @@ FIELDS = ('read_start', 'read_end', 'adapter_start', 'adapter_end',
 
 def entry(device=None):
     """(fn, example_args): fn(reads, read_lens, adapters, adapter_lens)
-    runs kernels.forward_tiled and kernels.walk under 3,-6,-5,-2 and
-    returns (walk, best, cell_i, cell_j); example_args are 64 reads of
-    150 bp against 32 bp adapters on `device` (default the card)."""
+    runs kernels.forward_walk under 3,-6,-5,-2 and returns (walk, best,
+    cell_i, cell_j); example_args are 64 reads of 150 bp against 32 bp
+    adapters on `device` (default the card)."""
     dev = dispatch.resolve_device(device)
 
     def fn(reads, read_lens, adapters, adapter_lens):
-        bits, best, cell_i, cell_j, vflag, hflag = kernels.forward_tiled(
-            reads, read_lens, adapters, adapter_lens, *SCHEME)
-        walk = kernels.walk(bits, cell_i, cell_j, vflag, hflag)
-        return walk, best, cell_i, cell_j
+        return kernels.forward_walk(reads, read_lens, adapters, adapter_lens,
+                                    *SCHEME)
 
     rng = np.random.default_rng(0)
     B, L, A = 64, 150, 32

@@ -39,9 +39,10 @@ only decides whether the kernels or their plain versions run.
 Device entries (resolve_devices): each launch's padded lanes split,
 contiguous and as even as possible, over the entries (parallel/mesh.py
 launch_shards), which may name one device more than once.  The tables are
-held once per (rung, device); every entry's forward is enqueued before any
-entry's walk (engine_v2.traceback_shards, one walk kernel per entry), and
-the shards are harvested in order, so the results are those of one entry.
+held once per (rung, device); every entry's launch (for trace bits, the
+forward and its walk in one kernels.forward_walk call) is enqueued before
+any is harvested, and the shards are harvested in order, so the results
+are those of one entry.
 """
 
 from __future__ import annotations

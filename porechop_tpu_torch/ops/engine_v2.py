@@ -1,10 +1,11 @@
 """The device-side pieces around the DP kernels: the fused gathers from
-deduplicated window/adapter tables, the trace-bit walk, the finishers and
-the per-group reductions.
+deduplicated window/adapter tables, the finishers and the per-group
+reductions.
 
 Counterpart of the parts of porechop_tpu/ops/engine_v2.py on the trimming
 path, in plain PyTorch on the device the tensors lie on.  The forwards and
-the walk themselves are ops/kernels.py.  Window tables travel unpacked: the
+the walk themselves are ops/kernels.py (the walk of a trace-bit launch,
+_traceback_impl there, runs inside kernels.forward_walk).  Window tables travel unpacked: the
 JAX package packed codes two or four to a byte only to spare a slow host
 link.
 """
@@ -15,27 +16,6 @@ import numpy as np
 import torch
 
 from . import kernels
-
-
-def traceback(bits, cell_i, cell_j, vflag, hflag):
-    """Traceback over the trace bits, replicating SeqAn's GapsLeft walker
-    (porechop_tpu/ops/engine_v2 _traceback_impl) in one launch of
-    kernels.walk.  Returns (B, 10) int32 per-lane reverse-walk
-    aggregates: i0, j0 (cell where the walk stopped), n_path, matches,
-    rd_tmin/rd_tmax and ad_tmin/ad_tmax (first/last reverse-step index
-    holding a read / adapter base, -1 when none), s_ar_rev (adapter bases
-    before the last read column), s_ra_rev (read bases before the last
-    adapter column)."""
-    return kernels.walk(bits, cell_i, cell_j, vflag, hflag)
-
-
-def traceback_shards(shards):
-    """traceback of several launches, one per device entry (shards: a list
-    of traceback's arguments), each walked on its own device.  On a card
-    each walk is enqueued behind its forward and nothing waits until the
-    caller harvests; on the CPU the plain version walks each in turn.
-    Returns the list of (B, 10) aggregates."""
-    return [kernels.walk(*shard) for shard in shards]
 
 
 def finish_v2(walk, best_sc, cell_i, cell_j, read_lens, adapter_lens):
@@ -215,11 +195,13 @@ def score_fwd(reads, rl, adps, al, scoring):
 
 
 def gather_forward(wtab, wlens, atab, alens, w_idx, a_idx, scoring):
-    """Gather + trace-bit forward: (bits, best, cell_i, cell_j, vflag,
-    hflag), to be walked by traceback.  One forward for every window
-    length (porechop_tpu/ops/engine_v2 _pallas_mode's modes 1 and 2)."""
+    """Gather + trace-bit forward and its walk, in one kernels.forward_walk
+    call: (walk (B, 10), best, cell_i, cell_j), walk's aggregates as
+    kernels.walk lists them.  One forward for every window length
+    (porechop_tpu/ops/engine_v2 _pallas_mode's modes 1 and 2, with
+    _traceback_impl)."""
     reads, rl, adps, al = _gather(wtab, wlens, atab, alens, w_idx, a_idx)
-    return kernels.forward_tiled(reads, rl, adps, al, *scoring)
+    return kernels.forward_walk(reads, rl, adps, al, *scoring)
 
 
 def fused_gather_stats(wtab, wlens, atab, alens, w_idx, a_idx, scoring):

@@ -23,11 +23,15 @@ each lane into column chunks, one warp each, after a proven warm-up, so
 that it fills the card (split_plan, card_warps, csrc/dp_tiled.cu), and a
 small second kernel there folds the chunks' scouts.
 
-Beside them, the walk of a trace-bit launch (walk, csrc/dp_walk.cu: one
-thread per lane, counterpart of the XLA loop
+The walk of a trace-bit launch (counterpart of the XLA loop
 porechop_tpu/ops/engine_v2._traceback_impl) folds each lane's traceback
-from its elected cell into ten aggregates on the card, so that nothing
-waits for the host between a trace-bit forward and its harvest.
+from its elected cell into ten aggregates on the card.  forward_walk, the
+trimming path's trace-bit call, walks each lane inside the launch that
+elects its cell (csrc/dp_walk.cuh: one warp per lane, walking blocks of
+trace bytes staged in shared memory), so that a call returns the walk in
+the one or two launches of the forward, nothing waits for the host
+before its harvest, and a launch of one tile writes no trace bits at all.
+walk (csrc/dp_walk.cu) is the same walk over any trace bits.
 
 A wrapper runs its plain version when the tensors it is given lie on the
 CPU, launches its kernel on the CUDA device they lie on (under that
@@ -84,18 +88,19 @@ PART_INTS = 5              # ints per (chunk, lane) partial scout (csrc/)
 # Launches of each kernel since the counter was last reset.  A wrapper adds
 # one where it launches its kernel, and nowhere else.
 LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0,
-            'walk': 0}
+            'forward_walk': 0, 'walk': 0}
 # The same by (kernel, device), e.g. ('forward_tiled', 'cuda:1'), reset with
 # LAUNCHES.
 DEVICE_LAUNCHES = collections.Counter()
-# forward_tiled launches by (lanes, L, A, chunks per lane), reset with
-# LAUNCHES.
+# Trace-bit calls (forward_tiled and forward_walk) by (lanes, L, A, chunks
+# per lane), reset with LAUNCHES.
 TILED_CALLS = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 SOURCES = {'forward_score': 'dp_score.cu', 'forward_stats': 'dp_stats.cu',
-           'forward_tiled': 'dp_tiled.cu', 'walk': 'dp_walk.cu'}
+           'forward_tiled': 'dp_tiled.cu', 'forward_walk': 'dp_tiled.cu',
+           'walk': 'dp_walk.cu'}
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -177,18 +182,18 @@ def _nvcc() -> str:
 def build(build_dir: Path = BUILD_DIR) -> dict:
     """Compiles every kernel source that is missing or older than its
     sources, one nvcc process per source, all started together.  Returns
-    {kernel name: ptxas register/spill report} of the sources it built;
+    {source file: ptxas register/spill report} of the sources it built;
     raises with nvcc's output if any build fails."""
     build_dir.mkdir(parents=True, exist_ok=True)
     newest_src = max(p.stat().st_mtime for p in CSRC.iterdir()
                      if p.suffix in ('.cu', '.cuh'))
     procs = {}
-    for name, src in SOURCES.items():
+    for src in sorted(set(SOURCES.values())):
         lib = build_dir / (Path(src).stem + '.so')
         if lib.is_file() and lib.stat().st_mtime >= newest_src:
             continue
         tmp = lib.with_suffix('.so.tmp%d' % os.getpid())
-        procs[name] = (subprocess.Popen(
+        procs[src] = (subprocess.Popen(
             [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib)
@@ -224,6 +229,7 @@ def bind(path, name: str):
     n_in, n_int, n_out = {'forward_score': (4, 7, 1),
                           'forward_stats': (4, 7, 4),
                           'forward_tiled': (4, 10, 7),
+                          'forward_walk': (4, 10, 8),
                           'walk': (5, 2, 1)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p] * (n_out + 1))
@@ -355,44 +361,83 @@ def forward_tiled(reads, read_lens, adapters, adapter_lens,
     """(bits (A, B, L1p) uint8, best, cell_i, cell_j (B,) int32, vflag,
     hflag (B,) bool) for a window of any length L >= 1, L1p =
     tiled_l1p(L).  Bits are specified for rows < adapter_len and columns
-    <= read_len, the region the walker reads.  Every trace-bit forward of
-    the port, short windows (kernel_pallas.forward_pallas) and long
-    (forward_pallas_tiled) alike.  The kernel cuts each lane into the
-    column chunks of split_plan."""
+    <= read_len, the region the walker reads.  The trace-bit forward of
+    the JAX package (kernel_pallas.forward_pallas for short windows,
+    forward_pallas_tiled for long ones) with its bits; the trimming path
+    takes forward_walk.  The kernel cuts each lane into the column chunks
+    of split_plan."""
     if not _check(reads, read_lens, adapters, adapter_lens):
         return forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
+    out = _trace_bits('forward_tiled', reads, read_lens, adapters,
+                      adapter_lens, (match, mismatch, gap_open, gap_ext))
+    return out[:4] + tuple(f.view(torch.bool) for f in out[4:6])
+
+
+WALK_OUTS = 10             # aggregates per lane of walk and forward_walk
+
+
+def forward_walk(reads, read_lens, adapters, adapter_lens,
+                 match, mismatch, gap_open, gap_ext):
+    """(walk (B, 10) int32, best, cell_i, cell_j (B,) int32): forward_tiled
+    and the walk of its bits from each lane's elected cell (the aggregates
+    walk lists), in the same launches: the trace-bit kernel walks each
+    lane of an unsplit launch where it elects its cell, and the fold
+    kernel each lane of a split one.  A launch of one tile (L1p = TILE_T,
+    every window up to 255 bp) walks from shared memory and allocates no
+    trace bits.  The trimming path's one trace-bit call."""
+    if not _check(reads, read_lens, adapters, adapter_lens):
+        return forward_walk_plain(reads, read_lens, adapters, adapter_lens,
+                                  match, mismatch, gap_open, gap_ext)
+    _, best, ci, cj, _, _, walk = _trace_bits(
+        'forward_walk', reads, read_lens, adapters, adapter_lens,
+        (match, mismatch, gap_open, gap_ext))
+    return walk, best, ci, cj
+
+
+def _trace_bits(name, reads, read_lens, adapters, adapter_lens, scoring):
+    """Allocates the outputs of trace-bit kernel `name` ('forward_tiled' or
+    'forward_walk') on the inputs' card, cuts the lanes by split_plan and
+    launches it: (bits or None, best, cell_i, cell_j, vflag, hflag, walk
+    or None), the flags uint8."""
     B, L = reads.shape
     A = adapters.shape[1]
     L1p = tiled_l1p(L)
     dev = reads.device
-    bits = torch.empty((A, B, L1p), dtype=torch.uint8, device=dev)
-    best, ci, cj = (torch.empty(B, dtype=torch.int32, device=dev)
-                    for _ in range(3))
+    i32 = dict(dtype=torch.int32, device=dev)
+    best, ci, cj = (torch.empty(B, **i32) for _ in range(3))
     vf, hf = (torch.empty(B, dtype=torch.uint8, device=dev)
               for _ in range(2))
+    walk = (torch.empty((B, WALK_OUTS), **i32) if name == 'forward_walk'
+            else None)
+    # A walked launch of one tile keeps its trace bits in shared memory.
+    bits = (None if walk is not None and L1p == TILE_T
+            else torch.empty((A, B, L1p), dtype=torch.uint8, device=dev))
     if B:
-        chunk, warm = split_plan(B, L, A, (match, mismatch, gap_open,
-                                           gap_ext), card_warps(A, dev.index))
+        chunk, warm = split_plan(B, L, A, scoring, card_warps(A, dev.index))
         nch = L // chunk + 1
-        part = (torch.empty((nch, B, PART_INTS), dtype=torch.int32,
-                            device=dev) if nch > 1 else None)
-        _launch('forward_tiled', reads, read_lens, adapters, adapter_lens,
-                (B, L, A, L1p, match, mismatch, gap_open, gap_ext, chunk,
-                 warm), (bits, best, ci, cj, vf, hf, part))
+        part = (torch.empty((nch, B, PART_INTS), **i32) if nch > 1
+                else None)
+        outs = (bits, best, ci, cj, vf, hf, part)
+        _launch(name, reads, read_lens, adapters, adapter_lens,
+                (B, L, A, L1p, *scoring, chunk, warm),
+                outs if walk is None else outs + (walk,))
         TILED_CALLS[(B, L, A, nch)] += 1
     # The kernel writes each flag as 0 or 1, a valid bool byte.
-    return bits, best, ci, cj, vf.view(torch.bool), hf.view(torch.bool)
-
-
-WALK_OUTS = 10             # aggregates per lane of walk
+    return bits, best, ci, cj, vf, hf, walk
 
 
 def walk(bits, cell_i, cell_j, vflag, hflag):
     """The traceback of every lane of a trace-bit launch from its elected
     cell (forward_tiled's outputs: bits (A, B, L1p) uint8, cell_i, cell_j
-    (B,) int32, vflag, hflag (B,) bool or uint8), folded into (B, 10)
-    int32 aggregates (engine_v2.traceback lists them).  On a card the
+    (B,) int32, vflag, hflag (B,) bool or uint8), replicating SeqAn's
+    GapsLeft walker (porechop_tpu/ops/engine_v2 _traceback_impl), folded
+    into (B, 10) int32 aggregates: i0, j0 (the cell where the walk
+    stopped), n_path, matches, rd_tmin/rd_tmax and ad_tmin/ad_tmax
+    (first/last reverse-step index holding a read / adapter base, -1 when
+    none), s_ar_rev (adapter bases before the last read column), s_ra_rev
+    (read bases before the last adapter column).  The walk over any trace
+    bits; the trimming path walks inside forward_walk.  On a card the
     launch is enqueued on the current stream and nothing waits for it, so
     the kernel trusts cell_i <= A and cell_j < L1p, as forward_tiled makes
     them: checking values on the card would wait for it."""
@@ -620,6 +665,16 @@ def forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
     """Plain PyTorch version of forward_tiled."""
     return _plain(reads, read_lens, adapters, adapter_lens, match, mismatch,
                   gap_open, gap_ext, 'bitmap', tiled_l1p(reads.shape[1]))
+
+
+def forward_walk_plain(reads, read_lens, adapters, adapter_lens,
+                       match, mismatch, gap_open, gap_ext):
+    """Plain PyTorch version of forward_walk: forward_tiled_plain, then
+    walk_plain."""
+    bits, best, ci, cj, vf, hf = forward_tiled_plain(
+        reads, read_lens, adapters, adapter_lens, match, mismatch, gap_open,
+        gap_ext)
+    return walk_plain(bits, ci, cj, vf, hf), best, ci, cj
 
 
 # Moves of every lane that walk_plain enqueues between its checks of "any

@@ -160,10 +160,9 @@ class ReplayRunner:
             ms_d = torch.from_numpy(ms).to(dev)[:, None]
             me_d = torch.from_numpy(me).to(dev)[:, None]
             g.masked.masked_fill_((g.jcol >= ms_d) & (g.jcol < me_d), 4)
-            bits, best, ci, cj, vf, hf = kernels.forward_tiled(
+            walk, best, ci, cj = kernels.forward_walk(
                 g.masked, g.rl, self.amat.index_select(0, ai_d),
                 self.alen.index_select(0, ai_d), *self.scoring)
-            walk = engine_v2.traceback(bits, ci, cj, vf, hf)
             res = engine_v2.finish_v2(walk.cpu().numpy(), best.cpu().numpy(),
                                       ci.cpu().numpy(), cj.cpu().numpy(),
                                       g.rl_host, self.al_host[ai])

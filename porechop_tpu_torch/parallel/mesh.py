@@ -53,11 +53,11 @@ def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
     of the adapter table; tables(dev) returns (wtab, wlens, atab, alens)
     on dev.  kind: 'gm' (per-group best fraction) or 'gsc' (per-group max
     score), both with groups = (g_idx, n_groups); 'st' (per-lane stats);
-    'sc' (per-lane score); 'res' (trace-bit forward, then the walk).  Every
-    entry's forward is enqueued before any entry's walk, each walk on its
-    entry's device (engine_v2.traceback_shards).  Returns, per entry with
-    lanes, in lane order, the engine_v2.fused_gather_* result; for 'res',
-    (walk, best, cell_i, cell_j)."""
+    'sc' (per-lane score); 'res' (trace-bit forward and its walk,
+    engine_v2.gather_forward).  Every entry's call is enqueued on its
+    device before the caller harvests any.  Returns, per entry with lanes,
+    in lane order, the engine_v2.fused_gather_* result; for 'res', (walk,
+    best, cell_i, cell_j)."""
     shards = []
     for (lo, hi), dev in zip(split_lanes(len(w_idx), len(devices)),
                              devices):
@@ -77,11 +77,6 @@ def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
             shards.append(engine_v2.fused_gather_stats(*tabs, scoring))
         else:
             shards.append(engine_v2.gather_forward(*tabs, scoring))
-    if kind == 'res':
-        walks = engine_v2.traceback_shards(
-            [(bits, ci, cj, vf, hf) for bits, _, ci, cj, vf, hf in shards])
-        shards = [(walk, best, ci, cj)
-                  for walk, (_, best, ci, cj, _, _) in zip(walks, shards)]
     return shards
 
 

@@ -182,6 +182,25 @@ def call_tiled(fn, batch, scheme, chunk=None, warm=0, stream=None):
     columns after `warm` columns of warm-up (one chunk by default).  The
     bits start as junk, so a byte of the walker's region that no chunk
     writes shows."""
+    bits, *cells, vf, hf = _call_bits(fn, batch, scheme, chunk, warm, stream)
+    return bits, *cells, vf != 0, hf != 0
+
+
+def call_walk(fn, batch, scheme, chunk=None, warm=0, stream=None,
+              bits=True):
+    """A built pdp_forward_walk on the batch's device, as call_tiled:
+    (walk, best, cell_i, cell_j, vflag, hflag, bits), the flags uint8.
+    The bits start as the junk byte 0xa5 (or, with bits=False, there are
+    none: a null pointer, which only a one-tile launch takes)."""
+    walk = torch.full((batch[0].shape[0], kernels.WALK_OUTS), -7,
+                      dtype=torch.int32, device=batch[0].device)
+    bits, *rest = _call_bits(fn, batch, scheme, chunk, warm, stream, walk,
+                             bits)
+    return walk, *rest, bits
+
+
+def _call_bits(fn, batch, scheme, chunk, warm, stream, walk=None,
+               bits=True):
     reads, rl, adps, al = batch
     B, L = reads.shape
     A = adps.shape[1]
@@ -189,16 +208,18 @@ def call_tiled(fn, batch, scheme, chunk=None, warm=0, stream=None):
     chunk = chunk or L1p
     nch = L // chunk + 1
     dev = dict(device=reads.device)
-    bits = torch.full((A, B, L1p), 0xa5, dtype=torch.uint8, **dev)
+    bits = (torch.full((A, B, L1p), 0xa5, dtype=torch.uint8, **dev) if bits
+            else None)
     cells = [torch.empty(B, dtype=torch.int32, **dev) for _ in range(3)]
     flags = [torch.empty(B, dtype=torch.uint8, **dev) for _ in range(2)]
     part = (torch.empty((nch, B, kernels.PART_INTS), dtype=torch.int32,
                         **dev) if nch > 1 else None)
+    outs = [bits, *cells, *flags, part] + ([] if walk is None else [walk])
     rc = fn(*(x.data_ptr() for x in batch), B, L, A, L1p, *scheme, chunk,
-            warm, *(x.data_ptr() for x in (bits, *cells, *flags)),
-            None if part is None else part.data_ptr(), stream)
+            warm, *(None if x is None else x.data_ptr() for x in outs),
+            stream)
     assert rc == 0, rc
-    return bits, *cells, flags[0] != 0, flags[1] != 0
+    return bits, *cells, *flags
 
 
 def tiled_diffs(got, want, batch):

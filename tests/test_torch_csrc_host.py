@@ -3,19 +3,24 @@ with g++ for the CPU and held against the kernels' plain versions.
 
 A small stub header stands in for the CUDA runtime: one std::thread per CUDA
 thread of a block, blocks run one after another, __shfl_*_sync,
-__reduce_max_sync and __syncwarp as std::barrier exchanges among a warp's 32
-threads, `extern __shared__` as a buffer per block (filled with junk, so a
-read of a byte the kernel never staged shows), the DPX intrinsics in plain
-C++, and `k<<<grid, block, smem, stream>>>(args)` rewritten into a host
-launch.  The exported pdp_forward_* functions are then called through
-ctypes on CPU pointers, bound as ops/kernels.py binds them on the card.
+__reduce_max_sync, __ballot_sync and __syncwarp as std::barrier exchanges
+among a warp's 32 threads, `extern __shared__` as a buffer per block
+(filled with junk, so a read of a byte the kernel never staged shows), the
+DPX intrinsics in plain C++, and `k<<<grid, block, smem, stream>>>(args)`
+rewritten into a host launch.  The exported pdp_* functions are then
+called through ctypes on CPU pointers, bound as ops/kernels.py binds them
+on the card.
 
 What it shows: the kernels' arithmetic, tie rules, tile edges, scouts and
 warp exchanges equal the plain versions on the outputs the walker reads;
-the walk (pdp_walk, csrc/dp_walk.cu) equals walk_plain and the JAX
-package's walker (porechop_tpu/ops/engine_v2._traceback, plain XLA on the
-CPU) on the same trace bits, from the JAX forward, the plain forward and
-the host-built split forward, and on random bytes.
+the standalone walk (pdp_walk, csrc/dp_walk.cu) equals walk_plain and the
+JAX package's walker (porechop_tpu/ops/engine_v2._traceback, plain XLA on
+the CPU) on the same trace bits, from the JAX forward, the plain forward
+and the host-built split forward, and on random bytes; the trace-bit call
+with its walk (pdp_forward_walk) equals forward_walk_plain and the JAX
+walker on the JAX forward's bits on its three routes (one tile, walking
+shared memory alone; unsplit; split), and paths that cross the staging
+blocks' edges walk right.
 What it cannot show: every barrier runs the warp in lockstep, so it hides
 races (a missing __syncwarp, a shared-memory hazard between warps of a
 block) and anything of the card's compiler; only the card tests
@@ -37,14 +42,16 @@ import torch
 from porechop_tpu.ops import engine_v2 as jax_engine
 from porechop_tpu_torch.ops import engine_v2, kernels
 
-from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, dp_batch,
-                               gap_run_batch, one_torch_thread, plan_warm,
-                               plant, split_batch, tiled_diffs, to_torch)
+from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, call_walk,
+                               dp_batch, gap_run_batch, one_torch_thread,
+                               plan_warm, plant, split_batch, tiled_diffs,
+                               to_torch)
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 STUB = r'''
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
@@ -173,6 +180,17 @@ inline int __reduce_max_sync(unsigned, int v) {
 inline void __syncwarp(unsigned = 0xffffffffu) {
   stub::warp().bar.arrive_and_wait();
 }
+inline void __threadfence_block() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int* buf = stub::exchange(p != 0);
+  unsigned m = 0;
+  for (int k = 0; k < 32; ++k) m |= (unsigned)(buf[k] != 0) << k;
+  return m;
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 '''
 
 _LAUNCH = re.compile(r'(\w+)\s*<<<(.*?)>>>\s*\((.*?)\)\s*;', re.S)
@@ -192,7 +210,8 @@ def _host_source(text):
 @pytest.fixture(scope='module')
 def host_kernels(tmp_path_factory):
     """{kernel name: bound C function} of csrc/*.cu built with g++ against
-    the stub, one g++ per source, all started together."""
+    the stub, one g++ per source, all started together (forward_tiled and
+    forward_walk share dp_tiled.cu)."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++ to build the CUDA sources for the CPU')
@@ -202,18 +221,17 @@ def host_kernels(tmp_path_factory):
         if src.suffix in ('.cu', '.cuh'):
             (root / src.name).write_text(_host_source(src.read_text()))
     procs = {}
-    for name, src in kernels.SOURCES.items():
-        lib = root / (src[:-3] + '.so')
-        procs[name] = (subprocess.Popen(
+    for src in sorted(set(kernels.SOURCES.values())):
+        procs[src] = subprocess.Popen(
             [gxx, '-std=c++20', '-O1', '-pthread', '-shared', '-fPIC',
-             '-I', str(root), '-x', 'c++', '-o', str(lib), str(root / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
-    for name, (proc, lib) in procs.items():
+             '-I', str(root), '-x', 'c++', '-o', str(root / (src[:-3] + '.so')),
+             str(root / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for proc in procs.values():
         out, _ = proc.communicate()
         assert proc.returncode == 0, out
-        fns[name] = kernels.bind(lib, name)
-    return fns
+    return {name: kernels.bind(root / (src[:-3] + '.so'), name)
+            for name, src in kernels.SOURCES.items()}
 
 
 def _run(fn, batch, ints, outs):
@@ -449,7 +467,7 @@ def test_walk_on_split_bits(host_kernels, A, C):
                                          batch, SCHEME, C,
                                          plan_warm(A, SCHEME))
     got = _assert_walks_agree(host_kernels['walk'], bits, ci, cj, vf, hf)
-    assert torch.equal(got, engine_v2.traceback(
+    assert torch.equal(got, kernels.walk(
         *(x for k, x in enumerate(kernels.forward_tiled_plain(*batch,
                                                               *SCHEME))
           if k != 1)))
@@ -480,9 +498,8 @@ def test_walk_on_random_bytes(host_kernels, seed):
 
 def test_walk_wrapper_launches_per_shard(host_kernels, monkeypatch):
     """kernels.walk's launch path (the kernel bound by bind, the stream,
-    the launch counters) on the host-built kernel: traceback_shards
-    launches one walk per shard, each on its shard's device, and never
-    reaches walk_plain."""
+    the launch counters) on the host-built kernel: one walk launched per
+    shard, each on its shard's device, never reaching walk_plain."""
     monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda device=None: types.SimpleNamespace(
@@ -500,9 +517,218 @@ def test_walk_wrapper_launches_per_shard(host_kernels, monkeypatch):
     monkeypatch.setattr(kernels, 'walk_plain', refused)
     monkeypatch.setattr(kernels, '_check_walk', lambda *args: True)
     kernels.reset_launches()
-    got = engine_v2.traceback_shards(shards)
+    got = [kernels.walk(*shard) for shard in shards]
     assert kernels.LAUNCHES['walk'] == 2
     assert kernels.DEVICE_LAUNCHES[('walk', 'cpu')] == 2
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    kernels.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# The trace-bit call with its walk (pdp_forward_walk)
+# ---------------------------------------------------------------------------
+
+# Rows and columns of the walk's staging block (csrc/dp_walk.cuh
+# STAGE_ROWS, STAGE_COLS).
+STAGE = 64
+WALK_ROUTES = ['one tile', 'unsplit', 'split']
+
+
+def _route_batch(route, A):
+    """Lanes for one route of pdp_forward_walk at adapter width A: 'one
+    tile' (200 bp windows: L1p = TILE_T, the walk from shared memory),
+    'unsplit' (700 bp, three tiles: staged from the bits the kernel wrote)
+    and 'split' (split_batch's 1,300 bp lanes in 256-column chunks: the
+    fold kernel walks); each with a full-width adapter copy, a pad lane
+    (read and adapter length 0) and a one-base read.  Returns (batch, the
+    pad lane)."""
+    if route == 'split':
+        reads, rl, adps, al = (x.numpy().copy() for x in split_batch(A, T))
+        pad = 8                                  # read length 0 there
+    else:
+        L = 200 if route == 'one tile' else 700
+        reads, rl, adps, al = dp_batch(80 + A, 12, L, A)
+        rl[0], al[0] = L, A
+        plant(reads, adps, al, 0, L - 7)
+        rl[2] = 1
+        pad = 1
+    rl[pad] = al[pad] = 0
+    return to_torch(reads, rl, adps, al), pad
+
+
+def _route_split(route, A):
+    return (T, plan_warm(A, SCHEME)) if route == 'split' else (None, 0)
+
+
+@pytest.mark.parametrize('route', WALK_ROUTES)
+@pytest.mark.parametrize('A', [16, 32, 48, 96, 128])
+def test_forward_walk_matches_plain_and_jax(host_kernels, A, route):
+    """The walk inside the trace-bit launch, on every route and at every
+    register-row count: the aggregates and cells equal forward_walk_plain
+    and the JAX walker on the JAX forward's own bits; best, cells and
+    flags equal pdp_forward_tiled's bit for bit, and so do the bits it
+    writes, except on a one-tile launch, which leaves the bits buffer
+    untouched (its walk read shared memory alone)."""
+    batch, pad = _route_batch(route, A)
+    chunk, warm = _route_split(route, A)
+    walk, best, ci, cj, vf, hf, bits = call_walk(
+        host_kernels['forward_walk'], batch, SCHEME, chunk, warm)
+    for name, g, w in zip(('walk', 'best', 'cell_i', 'cell_j'),
+                          (walk, best, ci, cj),
+                          kernels.forward_walk_plain(*batch, *SCHEME)):
+        assert torch.equal(g, w), name
+    tiled = call_tiled(host_kernels['forward_tiled'], batch, SCHEME, chunk,
+                       warm)
+    for name, g, w in zip(('best', 'cell_i', 'cell_j', 'vflag', 'hflag'),
+                          (best, ci, cj, vf != 0, hf != 0), tiled[1:]):
+        assert torch.equal(g, w), name
+    if route == 'one tile':
+        assert (bits == 0xa5).all()
+    else:
+        assert tiled_diffs((bits, *tiled[1:]), tiled, batch) == []
+    jbits, jbest, jci, jcj, jvf, jhf = (np.asarray(x) for x in
+                                        jax_engine._forward(
+                                            *(x.numpy() for x in batch),
+                                            *SCHEME))
+    assert np.array_equal(walk.numpy(), np.asarray(jax_engine._traceback(
+        jbits, jci, jcj, jvf, jhf)))
+    for g, w in ((best, jbest), (ci, jci), (cj, jcj)):
+        assert np.array_equal(g.numpy(), w)
+    assert walk[pad].tolist() == [0, 0, 0, 0, -1, -1, -1, -1, 0, 0]
+    assert walk[0, 3] > 0                  # the copy, walked base by base
+
+
+def _block_exits(bits, k, i, j, vf, hf):
+    """How lane k's walk from cell (i, j) leaves the staging blocks of
+    csrc/dp_walk.cuh walk_staged (16-byte loads): the set of the edges,
+    'top' and 'left', that its path crosses."""
+    exits = set()
+    mode = (1 if vf else 2 if hf else 0) if i > 0 and j > 0 else 0
+    while i > 0 and j > 0:
+        r0 = max(i - STAGE, 0)
+        c0 = max(((j + 16) & ~15) - STAGE, 0)
+        while i > r0 and j > 0 and j >= c0:
+            tv = int(bits[i - 1, k, j])
+            go_diag = mode == 0 and bool(tv & kernels.B_DIAG)
+            go_vert = mode == 1 or (mode == 0 and not go_diag
+                                    and bool(tv & kernels.B_MAXV))
+            go_hori = not go_diag and not go_vert
+            mode = (1 if go_vert and i != 1 and tv & kernels.B_VEXT else
+                    2 if go_hori and j != 1 and tv & kernels.B_HEXT else 0)
+            i -= not go_hori
+            j -= not go_vert
+        if i > 0 and j > 0:
+            exits |= {'top'} if i == r0 else set()
+            exits |= {'left'} if j < c0 else set()
+    return exits
+
+
+def _block_edge_batch(A=128, L=700):
+    """Lanes whose walks leave a staging block through its top edge only
+    (lane 0: a 100-base adapter with 60 bases deleted, a vertical run over
+    40 columns), through its left edge only (lane 1: a 40-base adapter
+    with 60 bases inserted, a horizontal run) and through both (lane 2: a
+    full-width adapter with 80 bases deleted and 70 inserted), on random
+    reads, beside dp_batch's lanes and a pad lane.  Each copy is placed as
+    (adapter slice, first read column)."""
+    rng = np.random.default_rng(95)
+    reads, rl, adps, al = dp_batch(95, 10, L, A)
+    reads[:3] = rng.integers(0, 4, (3, L))
+    adps[:3] = rng.integers(0, 4, (3, A))
+    rl[:3] = L
+    al[:3] = 100, 40, A
+    for k, copies in enumerate(([(0, 20, 500), (80, 100, 520)],
+                                [(0, 20, 500), (20, 40, 580)],
+                                [(0, 20, 500), (20, 30, 590),
+                                 (A - 18, A, 600)])):
+        for lo, hi, col in copies:
+            reads[k, col:col + hi - lo] = adps[k, lo:hi]
+    rl[9] = al[9] = 0
+    return to_torch(reads, rl, adps, al)
+
+
+EDGE_SCHEME = (5, -6, -12, -1)     # long gap runs pay, wandering does not
+
+
+@pytest.mark.parametrize('route', ['unsplit', 'split', 'standalone'])
+def test_walks_cross_staging_block_edges(host_kernels, route):
+    """Paths that leave a staging block through its top edge, its left
+    edge and both (each shown by a model of the blocks on the plain
+    forward's bits), walked by the unsplit kernel's epilogue, by the fold
+    kernel of a split launch (256-column chunks) and by the standalone
+    walk: each equals walk_plain."""
+    batch = _block_edge_batch()
+    scheme = EDGE_SCHEME
+    bits, _, ci, cj, vf, hf = kernels.forward_tiled_plain(*batch, *scheme)
+    exits = [_block_exits(bits, k, int(ci[k]), int(cj[k]), bool(vf[k]),
+                          bool(hf[k])) for k in range(3)]
+    assert exits == [{'top'}, {'left'}, {'top', 'left'}]
+    want = kernels.walk_plain(bits, ci, cj, vf, hf)
+    if route == 'standalone':
+        got = _walk_host(host_kernels['walk'], bits, ci, cj,
+                         vf.to(torch.uint8), hf.to(torch.uint8))
+    else:
+        chunk, warm = (T, plan_warm(128, scheme)) if route == 'split' else (
+            None, 0)
+        got = call_walk(host_kernels['forward_walk'], batch, scheme, chunk,
+                        warm)[0]
+    assert torch.equal(got, want)
+
+
+def test_forward_walk_wrapper(host_kernels, monkeypatch):
+    """kernels.forward_walk's launch path on the host-built kernel: one
+    launch counted under its own name per call (a split call's fold runs
+    inside it), the call's shape and chunks in TILED_CALLS, no standalone
+    walk, never the plain version; a one-tile call allocates no trace-bit
+    tensor (the launch here is handed a sentinel buffer instead of the
+    wrapper's None, since a stub kernel touching a null pointer would take
+    the test process down, and the buffer stays untouched)."""
+    monkeypatch.setattr(kernels, '_check', lambda *args: True)
+    monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    L, A = 4500, 24
+    reads, rl, adps, al = dp_batch(91, 3, L, A)
+    rl[:] = L, 2048, 4097
+    al[:] = A
+    plant(reads, adps, al, 0, 2047)
+    plant(reads, adps, al, 2, 4096 + A // 2)
+    split = to_torch(reads, rl, adps, al)
+    short = to_torch(*dp_batch(92, 20, 150, A))
+    want = [kernels.forward_walk_plain(*b, *SCHEME) for b in (split, short)]
+
+    def refused(*args):
+        raise AssertionError('a plain version ran')
+    monkeypatch.setattr(kernels, 'forward_walk_plain', refused)
+    monkeypatch.setattr(kernels, 'walk_plain', refused)
+    handed = []
+    launch = kernels._launch
+
+    def sentinel_bits(name, *args):
+        *rest, outs = args
+        handed.append(outs[0])
+        if outs[0] is None:
+            outs = (torch.full((A, 20, T), 0xa5, dtype=torch.uint8),
+                    *outs[1:])
+            handed.append(outs[0])
+        return launch(name, *rest, outs)
+    monkeypatch.setattr(kernels, '_launch', sentinel_bits)
+    kernels.reset_launches()
+    kernels.card_warps.cache_clear()
+    try:
+        got = [kernels.forward_walk(*b, *SCHEME) for b in (split, short)]
+    finally:
+        kernels.card_warps.cache_clear()
+    assert kernels.LAUNCHES == {'forward_score': 0, 'forward_stats': 0,
+                                'forward_tiled': 0, 'forward_walk': 2,
+                                'walk': 0}
+    assert kernels.DEVICE_LAUNCHES == {('forward_walk', 'cpu'): 2}
+    assert kernels.TILED_CALLS == {(3, L, A, 3): 1, (20, 150, A, 1): 1}
+    assert handed[0].shape == (A, 3, kernels.tiled_l1p(L))
+    assert handed[1] is None and (handed[2] == 0xa5).all()
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
     kernels.reset_launches()

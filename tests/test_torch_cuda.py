@@ -1,7 +1,8 @@
 """Card tests for the PyTorch port: each CUDA kernel against its plain
 PyTorch version on the card (exact: every output is an integer, and the
-bits are compared in the region the walker reads), the walk enqueued with
-no host synchronisation, and the CLI on the card against the CPU run.  They
+bits are compared in the region the walker reads), the trace-bit call
+with its walk (forward_walk) and the standalone walk enqueued with no host
+synchronisation, and the CLI on the card against the CPU run.  They
 skip without a CUDA device; on a machine with one run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -24,9 +25,9 @@ from porechop_tpu_torch.ops import dispatch, engine_v2, kernels
 from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
 
 from .test_torch_cases import (H100_WARPS, MODES, SCHEME, align_jobs,
-                               call_tiled, dp_batch, gap_run_batch,
-                               plan_warm, plant, run_mode, split_batch,
-                               tiled_diffs, to_torch)
+                               call_tiled, call_walk, dp_batch,
+                               gap_run_batch, plan_warm, plant, run_mode,
+                               split_batch, tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,7 +63,8 @@ def test_kernels_match_plain(card, seed, B, L, A):
         rows, cols = int(al[k]), int(rl[k]) + 1
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_tiled': 1, 'walk': 0}
+                                'forward_tiled': 1, 'forward_walk': 0,
+                                'walk': 0}
 
 
 @pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
@@ -118,7 +120,8 @@ def test_score_and_stats_match_plain(card, A, ntiles):
                     kernels.forward_stats(*cpu, *SCHEME)):
         assert torch.equal(g.cpu(), w)
     assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_tiled': 0, 'walk': 0}
+                                'forward_tiled': 0, 'forward_walk': 0,
+                                'walk': 0}
 
 
 @pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
@@ -180,7 +183,7 @@ def test_forced_chunks_match_plain(card, A, C):
 def _walk_shards(card, A, chunk):
     """Two shards of split_batch(A, chunk or 256) lanes on the card, their
     bits from the kernel cut into `chunk`-column chunks (None: the
-    wrapper's own plan), as traceback_shards takes them, with their CPU
+    wrapper's own plan), as kernels.walk takes them, with their CPU
     copies."""
     cpu = split_batch(A, chunk or 256)
     shards = []
@@ -205,7 +208,7 @@ def test_walk_matches_plain(card, A, chunk):
     the same bits: one launch per shard, exact."""
     shards, cpu = _walk_shards(card, A, chunk)
     kernels.reset_launches()
-    got = engine_v2.traceback_shards(shards)
+    got = [kernels.walk(*shard) for shard in shards]
     assert kernels.LAUNCHES['walk'] == 2
     assert kernels.DEVICE_LAUNCHES[('walk', 'cuda:0')] == 2
     for g, shard in zip(got, cpu):
@@ -213,9 +216,9 @@ def test_walk_matches_plain(card, A, chunk):
 
 
 def test_walk_does_not_synchronise(card, monkeypatch):
-    """traceback_shards enqueues one walk per shard and returns: no call
-    that waits for the card (torch's sync debug mode raises on one), and
-    the plain walker never runs; the harvest then equals walk_plain."""
+    """kernels.walk enqueues one walk per shard and returns: no call that
+    waits for the card (torch's sync debug mode raises on one), and the
+    plain walker never runs; the harvest then equals walk_plain."""
     shards, cpu = _walk_shards(card, 48, None)
     kernels._lib('walk')                # built before the checked span
     plain = kernels.walk_plain
@@ -225,7 +228,7 @@ def test_walk_does_not_synchronise(card, monkeypatch):
     monkeypatch.setattr(kernels, 'walk_plain', refused)
     torch.cuda.set_sync_debug_mode('error')
     try:
-        got = engine_v2.traceback_shards(shards)
+        got = [kernels.walk(*shard) for shard in shards]
     finally:
         torch.cuda.set_sync_debug_mode('default')
     for g, shard in zip(got, cpu):
@@ -243,6 +246,115 @@ def test_walk_raises_for_a_bad_input_on_the_card(card):
     with pytest.raises(ValueError, match='one device'):
         kernels.walk(bits, ci.cpu(), cj, vf, hf)
     assert kernels.LAUNCHES['walk'] == 0
+
+
+def _route_batch(route, A):
+    """tests/test_torch_csrc_host.py's lanes of one forward_walk route:
+    'one tile' (200 bp), 'unsplit' (700 bp) or 'split' (split_batch in
+    256-column chunks), with their chunks and warm-up."""
+    if route == 'split':
+        return split_batch(A, 256), 256, plan_warm(A, SCHEME)
+    L = 200 if route == 'one tile' else 700
+    reads, rl, adps, al = dp_batch(80 + A, 40, L, A)
+    rl[0], al[0] = L, A
+    plant(reads, adps, al, 0, L - 7)
+    rl[1] = al[1] = 0
+    return to_torch(reads, rl, adps, al), None, 0
+
+
+@pytest.mark.parametrize('route', ['one tile', 'unsplit', 'split'])
+@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def test_forward_walk_matches_plain(card, A, route):
+    """The built pdp_forward_walk on each route against forward_walk_plain,
+    its best, cells and flags against pdp_forward_tiled's on the same
+    lanes, bit for bit; a one-tile launch gets no bits buffer at all (a
+    null pointer: touching it would fault)."""
+    cpu, chunk, warm = _route_batch(route, A)
+    dev = [t.to(card) for t in cpu]
+    stream = torch.cuda.current_stream().cuda_stream
+    got = call_walk(kernels._lib('forward_walk'), dev, SCHEME, chunk, warm,
+                    stream, bits=route != 'one tile')
+    tiled = call_tiled(kernels._lib('forward_tiled'), dev, SCHEME, chunk,
+                       warm, stream)
+    torch.cuda.synchronize()
+    for name, g, w in zip(('walk', 'best', 'cell_i', 'cell_j'), got,
+                          kernels.forward_walk_plain(*cpu, *SCHEME)):
+        assert torch.equal(g.cpu(), w), name
+    for name, g, w in zip(('best', 'cell_i', 'cell_j', 'vflag', 'hflag'),
+                          got[1:4] + tuple(f != 0 for f in got[4:6]),
+                          tiled[1:]):
+        assert torch.equal(g, w), name
+
+
+def test_forward_walk_wrapper_on_the_card(card):
+    """kernels.forward_walk at phase 2's end-window shape (16,384 x 150 x
+    32, one tile) and a split shape: one launch counted a call, no
+    standalone walk, results equal to the plain version's; the one-tile
+    call allocates no trace bits (its peak stays below the 128 MiB they
+    would take)."""
+    x = [t.to(card) for t in to_torch(*dp_batch(12, 16384, 150, 32))]
+    torch.cuda.synchronize()
+    kernels.forward_walk(*(t[:8] for t in x), *SCHEME)     # built, warm
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    kernels.reset_launches()
+    got = kernels.forward_walk(*x, *SCHEME)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(card) - base < 16 * 2 ** 20
+    L, A = 40000, 48
+    chunk, _ = kernels.split_plan(8, L, A, SCHEME, kernels.card_warps(A))
+    reads, rl, adps, al = dp_batch(14, 8, L, A)
+    rl[0], al[0] = L, A
+    plant(reads, adps, al, 0, chunk + A // 2)        # across a chunk edge
+    split_cpu = to_torch(reads, rl, adps, al)
+    got_split = kernels.forward_walk(*(t.to(card) for t in split_cpu),
+                                     *SCHEME)
+    assert kernels.LAUNCHES == {'forward_score': 0, 'forward_stats': 0,
+                                'forward_tiled': 0, 'forward_walk': 2,
+                                'walk': 0}
+    assert kernels.TILED_CALLS == {(16384, 150, 32, 1): 1,
+                                   (8, L, A, L // chunk + 1): 1}
+    assert L // chunk + 1 > 1
+    for g, w in zip(got, kernels.forward_walk_plain(*(t.cpu() for t in x),
+                                                    *SCHEME)):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got_split, kernels.forward_walk_plain(*split_cpu,
+                                                          *SCHEME)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_gather_forward_does_not_synchronise(card, monkeypatch):
+    """engine_v2.gather_forward, the trace-bit path of every planner
+    launch (mesh.launch_shards 'res'), on two shards of lane indices
+    already on the card: each call enqueues its gather and forward_walk
+    and returns, with no call that waits for the card (torch's sync debug
+    mode raises on one) and no plain version; the harvest then equals
+    forward_walk_plain on each shard's lanes."""
+    cpu = to_torch(*dp_batch(13, 64, 700, 48))
+    tabs = [t.to(card) for t in cpu]
+    idx = [torch.arange(lo, hi, device=card) for lo, hi in ((0, 32),
+                                                           (32, 64))]
+    kernels._lib('forward_walk')        # built before the checked span
+    kernels.card_warps(48, tabs[0].device.index)
+    torch.cuda.synchronize()
+    want = [kernels.forward_walk_plain(*(t[lo:hi] for t in cpu), *SCHEME)
+            for lo, hi in ((0, 32), (32, 64))]
+
+    def refused(*args):
+        raise AssertionError('a plain version ran on the card')
+    monkeypatch.setattr(kernels, 'forward_walk_plain', refused)
+    monkeypatch.setattr(kernels, 'walk_plain', refused)
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        shards = [engine_v2.gather_forward(*tabs, i, i, SCHEME) for i in idx]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert kernels.LAUNCHES['forward_walk'] == 2
+    assert kernels.LAUNCHES['walk'] == 0
+    for shard, plain in zip(shards, want):
+        for g, w in zip(shard, plain):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_forward_tiled_raises_past_128_rows_on_the_card(card):

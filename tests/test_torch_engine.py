@@ -1,4 +1,5 @@
-"""The PyTorch port's walker, finishers and group reductions
+"""The PyTorch port's walker (porechop_tpu_torch/ops/kernels.py walk, on
+the CPU its plain version), finishers and group reductions
 (porechop_tpu_torch/ops/engine_v2.py) against the JAX package's
 (porechop_tpu/ops/engine_v2.py) on the same inputs.  Tolerance: exact (all
 integers)."""
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from porechop_tpu.ops import engine_v2 as jax_engine
-from porechop_tpu_torch.ops import engine_v2
+from porechop_tpu_torch.ops import engine_v2, kernels
 
 from .test_torch_cases import (FIELDS, SCHEME, dp_batch, gap_run_batch,
                                one_torch_thread)
@@ -28,9 +29,9 @@ def test_walker_and_finish_on_jax_bits(seed, B, L, A):
     bits, best, ci, cj, vf, hf = (np.array(x) for x in jax_engine._forward(
         reads, rl, adps, al, *SCHEME))
     jwalk = np.asarray(jax_engine._traceback(bits, ci, cj, vf, hf))
-    walk = engine_v2.traceback(torch.from_numpy(bits), torch.from_numpy(ci),
-                               torch.from_numpy(cj), torch.from_numpy(vf),
-                               torch.from_numpy(hf)).numpy()
+    walk = kernels.walk(torch.from_numpy(bits), torch.from_numpy(ci),
+                        torch.from_numpy(cj), torch.from_numpy(vf),
+                        torch.from_numpy(hf)).numpy()
     assert np.array_equal(walk, jwalk)
 
     res = engine_v2.finish_v2(walk, best, ci, cj, rl, al)

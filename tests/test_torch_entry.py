@@ -109,7 +109,7 @@ def test_align_affine_matches_jax_spec(scheme):
 
 
 def test_entry_walk_is_the_kernels_walk():
-    """entry's fn walks through kernels.walk (on the CPU, its plain
+    """entry's fn walks inside kernels.forward_walk (on the CPU, its plain
     version): the same aggregates as walk_plain on forward_tiled's
     outputs."""
     fn, args = entry.entry('cpu')

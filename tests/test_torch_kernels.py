@@ -47,7 +47,7 @@ def _walk_port(batch, scheme):
     reads, rl, adps, al = to_torch(*batch)
     bits, best, ci, cj, vf, hf = kernels.forward_tiled(reads, rl, adps, al,
                                                        *scheme)
-    walk = engine_v2.traceback(bits, ci, cj, vf, hf)
+    walk = kernels.walk(bits, ci, cj, vf, hf)
     res = engine_v2.finish_v2(walk.numpy(), best.numpy(), ci.numpy(),
                               cj.numpy(), batch[1], batch[3])
     return (best, ci, cj, vf, hf), walk.numpy(), res

@@ -69,7 +69,7 @@ def _port_walk(batch):
     assert bits.shape == (adps.shape[1], reads.shape[0],
                           kernels.tiled_l1p(reads.shape[1]))
     assert bits.shape[2] % kernels.TILE_T == 0
-    walk = engine_v2.traceback(bits, ci, cj, vf, hf)
+    walk = kernels.walk(bits, ci, cj, vf, hf)
     res = engine_v2.finish_v2(walk.numpy(), best.numpy(), ci.numpy(),
                               cj.numpy(), batch[1], batch[3])
     return (best, ci, cj, vf, hf), walk.numpy(), res
@@ -126,7 +126,7 @@ def test_last_row_key_holds_columns_past_2_20(starts):
     assert best.tolist() == [3 * A, 3 * A]
     assert ci.tolist() == [A, A]
     assert cj.tolist() == [starts[0] + A] * 2
-    walk = engine_v2.traceback(bits, ci, cj, vf, hf)
+    walk = kernels.walk(bits, ci, cj, vf, hf)
     res = engine_v2.finish_v2(walk.numpy(), best.numpy(), ci.numpy(),
                               cj.numpy(), rl, al)
     assert res['read_start'].tolist() == [starts[0]] * 2

@@ -22,6 +22,14 @@ shapes that split, cut into chunks of 4 to 16 warm-ups and into
 kernels.split_plan's chunks, through the built C function (the wrapper
 takes no chunk size); one JSON line per shape and chunk size, the plan's
 marked.  Each forced split is checked against the wrapper's cells.
+
+    python3 time_kernels.py --walk [--root DIR]
+
+times the trace-bit call at chip_smoke.WALK's shapes (the main path's):
+forward_tiled alone, forward_tiled and then the standalone walk on its
+bits, and forward_walk (the walk inside the forward's launches) where
+the package has it; each by CUDA events and by its kernels' durations
+under torch.profiler (chip_smoke._cupti_ms), one JSON line each.
 """
 
 import argparse
@@ -41,6 +49,8 @@ def main(argv=None):
                     help='checkout whose porechop_tpu_torch is timed')
     ap.add_argument('--chunks', action='store_true',
                     help='time the trace-bit kernel at forced chunk sizes')
+    ap.add_argument('--walk', action='store_true',
+                    help='time the trace-bit call with and without its walk')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('time_kernels: no CUDA device', file=sys.stderr)
@@ -57,6 +67,8 @@ def main(argv=None):
     kernels.build()
     if args.chunks:
         return sweep_chunks(kernels, root)
+    if args.walk:
+        return time_walks(kernels, root)
     for n, (name, spec_) in enumerate(chip_smoke.KERNELS.items()):
         kern = getattr(kernels, name)
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
@@ -65,6 +77,30 @@ def main(argv=None):
             print(json.dumps(dict(root=str(root), name=name, what=what,
                                   lanes=B, L=L, A=A, ms=ms)), flush=True)
             del x
+    return 0
+
+
+def time_walks(kernels, root):
+    """forward_tiled, forward_tiled + walk and forward_walk at each of
+    chip_smoke.WALK's shapes, with chip_smoke.check_trace_bits' inputs."""
+    scheme = chip_smoke.SCHEME
+    for m, (what, B, L, A) in enumerate(chip_smoke.WALK['shapes']):
+        x = chip_smoke._inputs(B, L, A, seed=200 + m)
+
+        def tiled_walk():
+            bits, _, ci, cj, vf, hf = kernels.forward_tiled(*x, *scheme)
+            return kernels.walk(bits, ci, cj, vf, hf)
+        calls = {'forward_tiled': lambda: kernels.forward_tiled(*x, *scheme),
+                 'forward_tiled + walk': tiled_walk}
+        if hasattr(kernels, 'forward_walk'):
+            calls['forward_walk'] = lambda: kernels.forward_walk(*x, *scheme)
+        for name, fn in calls.items():
+            print(json.dumps(dict(root=str(root), name=name, what=what,
+                                  lanes=B, L=L, A=A,
+                                  ms=chip_smoke._time_ms(fn),
+                                  cupti_ms=chip_smoke._cupti_ms(fn))),
+                  flush=True)
+        del x
     return 0
 
 
