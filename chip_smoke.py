@@ -30,6 +30,11 @@ column chunks (kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
 torch.distributed ranks sharing the card (two `python -m
 porechop_tpu_torch` processes, in memory and streamed), whose merged
 output and rank 0's transcript must be the single-process run's.  Then
+the stretch input's head (stretch_torch.py: 200,000 gzipped 1 kb reads,
+written by a process pool) streamed in ten chunks of 20,000, in this
+process at -v 0 (the device memory allocated after the last chunk within
+1 MiB of that after the first) and as two ranks at -v 1, against the JAX
+package's digests recorded in stretch_torch.py.  Then
 the schemes the kernels refuse, which run on the host (the native Gotoh
 engine built with g++, the linear executable spec): the 10 kb input at
 -v 0 and -v 1 under --scoring_scheme 3,-6,-2,-5 and 16 reads of 1 kb at
@@ -197,6 +202,9 @@ print(json.dumps({'peak_bytes': max(
       file=sys.stderr)
 """
 RANK_TIMEOUT = 300
+# The stretch phase: the head of stretch_torch.py's 1M-read input, its
+# digests recorded there, streamed in ten chunks of stretch_torch.CHUNK.
+STRETCH_READS = 200_000
 
 SCHEME = (3, -6, -5, -2)
 # H100 SXM: 3.35 TB/s of HBM3; 64 INT32 lanes per SM per clock x 132 SMs x
@@ -525,12 +533,12 @@ def make_input(what, work, reads, reads_sha):
     return size
 
 
-def _fresh_dir(work, name):
-    """work/name, emptied, holding a link to work/reads.fastq."""
+def _fresh_dir(work, name, reads='reads.fastq'):
+    """work/name, emptied, holding a link to work/reads."""
     d = work / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    os.symlink(work / 'reads.fastq', d / 'reads.fastq')
+    os.symlink(work / reads, d / reads)
     return d
 
 
@@ -722,15 +730,18 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_two_ranks(work, size, shapes, stream=None):
-    """The input at -v 1 as two torch.distributed ranks on the one card:
-    the merged output and rank 0's transcript must be the single-process
-    run's.  Adds the ranks' kernel call shapes to shapes; returns the
-    launches of both ranks together."""
+def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
+                  reads='reads.fastq', out='out_v1.fastq', out_sha=OUT_SHA[1],
+                  stdout_sha=STDOUT_SHA[1]):
+    """The input (work/reads) at -v 1 as two torch.distributed ranks on
+    the one card: the merged output and rank 0's transcript must be the
+    JAX package's (by default the 10 kb input's).  Adds the ranks' kernel
+    call shapes to shapes; returns the launches of both ranks together."""
     mode = '' if stream is None else ' --stream %d' % stream
-    label = '10 kb two ranks%s -v 1' % mode
-    d = _fresh_dir(work, 'ranks' + ('_mem' if stream is None else '_stream'))
-    argv = ['-i', 'reads.fastq', '-o', 'out_v1.fastq', '-v', '1', '-t', '4']
+    label = '%s two ranks%s -v 1' % (what, mode)
+    d = _fresh_dir(work, 'ranks' + ('_mem' if stream is None else '_stream'),
+                   reads)
+    argv = ['-i', reads, '-o', out, '-v', '1', '-t', '4']
     if stream is not None:
         argv += ['--stream', str(stream)]
     port = _free_port()
@@ -778,12 +789,12 @@ def run_two_ranks(work, size, shapes, stream=None):
             raise AssertionError('%s: rank %d never launched %s'
                                  % (label, r, idle))
         _check_walks('%s rank %d' % (label, r), s_['launches'])
-    got_out = _sha(d / 'out_v1.fastq')
-    if got_out != OUT_SHA[1]:
+    got_out = _sha(d / out)
+    if got_out != out_sha:
         raise AssertionError('%s merged output differs from the JAX '
                              'package (sha256 %s)' % (label, got_out))
     _check_text(label, d, outs[0][0].decode().replace(str(d), '<WORKDIR>'),
-                STDOUT_SHA[1])
+                stdout_sha)
     if outs[1][0]:
         raise AssertionError('%s: rank 1 wrote to stdout' % label)
     return {label: launches}
@@ -793,17 +804,20 @@ def run_two_ranks(work, size, shapes, stream=None):
 def recorded_shapes(kernels):
     """Records the (lanes, L, A) of every call of each forward wrapper made
     inside the block, and the (lanes, L1p, A) of the bits of every
-    standalone walk, into {kernel: set of shapes}; and counts the
-    forward_walk launches by (one tile, given a trace-bit tensor) into
-    shapes['bits'] (a Counter)."""
+    standalone walk, into {kernel: set of shapes}; counts the calls of
+    each forward wrapper by (kernel, lanes, L, A) into shapes['calls'] and
+    the forward_walk launches by (one tile, given a trace-bit tensor) into
+    shapes['bits'] (Counters)."""
     shapes = {name: set() for name in ALL_KERNELS}
     shapes['bits'] = collections.Counter()
+    shapes['calls'] = collections.Counter()
     saved = {name: getattr(kernels, name) for name in ALL_KERNELS}
     launch = kernels._launch
 
     def recording(name, fn):
         def call(reads, read_lens, adapters, *rest):
             shapes[name].add((*reads.shape, adapters.shape[1]))
+            shapes['calls'][(name, *reads.shape, adapters.shape[1])] += 1
             return fn(reads, read_lens, adapters, *rest)
         return call
 
@@ -938,6 +952,68 @@ def hybrid_runs(cli, kernels, work, size):
     return runs
 
 
+def stretch_runs(cli, kernels, shapes):
+    """The stretch input's head (stretch_torch.py: 200,000 gzipped 1 kb
+    reads, written by the pool), streamed in chunks of 20,000: in this
+    process at -v 0 and as two ranks at -v 1, each against the JAX
+    package's digests, every kernel of the path launching.  In the
+    in-process run the device memory allocated after the last chunk must
+    be within 1 MiB of that after the first (read after each chunk, when
+    the chunk loop counts its trims).  Returns {run label: launches}."""
+    import stretch_torch
+    from porechop_tpu_torch.pipeline import stream
+    n, chunk = STRETCH_READS, stretch_torch.CHUNK
+    work = WORK / 'stretch'
+    path, made_s = stretch_torch.make_input(n, work)
+    print('wrote the stretch input, %d gzipped reads, in %.1f s'
+          % (n, made_s), flush=True)
+    # As the digests were recorded: the input named reads.fastq.gz, which
+    # the -v 1 transcript prints.
+    reads = 'reads.fastq.gz'
+    if not (work / reads).is_symlink():
+        os.symlink(path, work / reads)
+    # Bases: the reads' 1 kb bodies (adapters not counted).
+    size = n, n * stretch_torch.READ_LEN
+    label = 'stretch %dk gz --stream %d -v 0' % (n // 1000, chunk)
+    d = _fresh_dir(work, 'stream_v0', reads)
+    after_chunk = []
+    trim_counts = stream.trim_counts
+
+    def counting(done):
+        after_chunk.append(torch.cuda.memory_allocated())
+        return trim_counts(done)
+    stream.trim_counts = counting
+    calls = shapes['calls'].copy()
+    try:
+        launches, _, text = run_cli(
+            cli, kernels, label, d,
+            ['-i', reads, '-o', 'out.fastq', '-v', '0', '-t', '4',
+             '--stream', str(chunk)], size)
+    finally:
+        stream.trim_counts = trim_counts
+    runs = {label: launches}
+    print('  calls by (kernel, lanes, L, A): %s' % ', '.join(
+        '%s x %d' % (k, c) for k, c in sorted((shapes['calls'] - calls)
+                                              .items())), flush=True)
+    want_out, want_text = stretch_torch.JAX_SHA[(n, 0)]
+    if _sha(d / 'out.fastq') != want_out:
+        raise AssertionError('%s output differs from the JAX package' % label)
+    _check_text(label, d, text, want_text)
+    growth = (after_chunk[-1] - after_chunk[0]) / 2 ** 20
+    print('  device memory allocated after each of %d chunks, MiB: %s'
+          % (len(after_chunk), ', '.join('%.2f' % (b / 2 ** 20)
+                                         for b in after_chunk)), flush=True)
+    if len(after_chunk) != n // chunk or abs(growth) > 1:
+        raise AssertionError('%s: %d chunks, device memory after the last '
+                             'minus after the first %.2f MiB'
+                             % (label, len(after_chunk), growth))
+    out_sha, stdout_sha = stretch_torch.JAX_SHA[(n, 1)]
+    runs.update(run_two_ranks(work, size, shapes, chunk,
+                              'stretch %dk gz' % (n // 1000), reads,
+                              'out.fastq', out_sha, stdout_sha))
+    return runs
+
+
 def on_card_runs(cli, kernels, shapes):
     """Every run of the trimmer, in the order the module docstring gives;
     shapes collects the two-rank runs' kernel call shapes.  Returns {run
@@ -970,6 +1046,7 @@ def on_card_runs(cli, kernels, shapes):
                                  stream=stream))
     for stream in (None, 2048):
         runs.update(run_two_ranks(work, size, shapes, stream=stream))
+    runs.update(stretch_runs(cli, kernels, shapes))
 
     # Schemes the kernels refuse: on the host, no launch.
     runs.update(run_main_path(cli, kernels, '10 kb', work, size,

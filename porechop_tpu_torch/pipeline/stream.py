@@ -23,7 +23,9 @@ Verbosity >= 2 needs per-read dumps in input order mid-stream, so the run
 takes the in-memory path instead (on the same device).
 
 Each chunk is parsed, computed and written in turn on the calling thread,
-so at most one chunk of reads is alive besides the detection sample.
+so at most one chunk of reads is alive besides the detection sample.  The
+JAX package parses ahead in a reader thread; on an H100 host that was no
+faster, on plain input nor on gzipped input (PERF.md section 7).
 """
 
 from __future__ import annotations
@@ -238,7 +240,8 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
 
     One loop reads, computes and writes each chunk in turn.  The JAX
     package overlaps parsing and writing with the compute in a reader and
-    a writer thread; on an H100 that pipeline was slower than this loop
+    a writer thread; on an H100 host that pipeline was slower than this
+    loop, and a reader thread alone on gzipped input was no faster
     (PERF.md), since parsing and serializing hold the GIL that the launch
     path needs."""
     check_barcodes = args.barcode_dir is not None
@@ -339,6 +342,7 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
             write_chunk(chunk)
             counts = [a + b for a, b in zip(counts, trim_counts(chunk))]
             done += len(chunk)
+            del chunk                   # before the next one is parsed
     finally:
         for fh in sinks.values():
             if fh is not sys.stdout:

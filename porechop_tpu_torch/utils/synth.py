@@ -174,6 +174,59 @@ def ensure_fastq_streamed(path: str, n_reads: int, read_len: int,
     return path
 
 
+def _fastq_gz_part(path, lo, n, read_len, seed, digits):
+    """Records lo to lo + n - 1 of synth_fastq_gz's input, gzipped into
+    path (one gzip member)."""
+    import gzip
+    reads = synth_reads(n, read_len, seed=seed + lo)
+    with gzip.open(path, 'wb', compresslevel=1) as f:
+        for k in range(0, n, 1000):
+            f.write(''.join('@read_%0*d\n%s\n+\n%s\n'
+                            % (digits, lo + int(name.split('_')[1]), seq,
+                               quals)
+                            for name, seq, quals in reads[k:k + 1000])
+                    .encode('ascii'))
+    return path
+
+
+def synth_fastq_gz(path: str, n_reads: int, read_len: int, seed: int = 0,
+                   chunk: int = 50_000, workers: int | None = None) -> str:
+    """Writes the gzipped FASTQ whose decompressed bytes are those of
+    ensure_fastq_streamed(path, n_reads, read_len, seed=seed, chunk=chunk)
+    (gzip level 1, not 9), each chunk of records generated in its own
+    process of a pool of `workers` (default: one a core) and the parts'
+    gzip members concatenated into one stream.  Overwrites path; a
+    worker's error propagates."""
+    import multiprocessing
+    import os
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    digits = len(str(max(n_reads - 1, 1)))
+    part_dir = path + '.parts'
+    shutil.rmtree(part_dir, ignore_errors=True)
+    os.makedirs(part_dir)
+    starts = range(0, n_reads, chunk)
+    workers = min(workers or os.cpu_count() or 1, len(starts)) or 1
+    try:
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context('spawn')
+        ) as pool:
+            parts = [pool.submit(_fastq_gz_part,
+                                 os.path.join(part_dir, 'part_%09d.gz' % lo),
+                                 lo, min(chunk, n_reads - lo), read_len, seed,
+                                 digits) for lo in starts]
+            parts = [p.result() for p in parts]
+        tmp = path + '.tmp%d' % os.getpid()
+        with open(tmp, 'wb') as out:
+            for part in parts:
+                with open(part, 'rb') as f:
+                    shutil.copyfileobj(f, out)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(part_dir, ignore_errors=True)
+    return path
+
+
 def ensure_fastq(path: str, **kwargs) -> str:
     import os
     if not os.path.isfile(path):

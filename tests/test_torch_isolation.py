@@ -40,7 +40,8 @@ def test_source_has_no_jax_or_porechop_tpu_import():
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'profile_torch.py',
-                                    'time_kernels.py', 'breakeven_torch.py'])
+                                    'time_kernels.py', 'breakeven_torch.py',
+                                    'stretch_torch.py'])
 def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
     """The scripts run on the card's machine, which has no jax."""
     assert not _bad_imports(PKG.parent / script)
