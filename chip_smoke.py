@@ -54,15 +54,23 @@ PORECHOP_TPU_MIDDLE_DEVICE=0: phase 2 and the replay's small rounds on
 the native engine, detection, round 0 and the large launches on the
 card; every kernel must launch and both routes must take jobs); and at
 -v 0 and -v 1 under PORECHOP_TPU_ENGINE=v1 (the stat-carrying engine on
-the card; the replay keeps the trace-bit kernel).  Every run prints its
+the card; the replay keeps the trace-bit kernel).  The 10 kb two-rank
+run (in memory) runs under PORECHOP_TPU_LOAD_STATS, and each rank must
+have built fewer reads than the input holds.  Every run prints its
 wall, reads/s, peak device memory per card and jobs and padded cells per
-route.  After the runs, every kernel is held against its plain version at
-every (lanes, L, A) that any on-card run launched it at (the two-rank
+route.  After the runs, every kernel is held against its plain version
+at every (lanes, L, A) that any on-card run launched it at (the two-rank
 runs' included) and the first checks did not cover; at every trace-bit
 shape, forward_walk, forward_tiled (bits, best, cells, flags) and the
 standalone walk on its bits.  Then the dry-run entry points
 (porechop_tpu_torch/entry.py): entry() on the card against the CPU, and
-dryrun_multichip(2) on cuda:0,cuda:0.  The script prints its own wall
+dryrun_multichip(2) on cuda:0,cuda:0.  Last, the instruments: the 10 kb
+input at -v 0 under PORECHOP_TPU_TIMING=1 (the five phase lines on
+stderr, in order) and under PORECHOP_TPU_PROFILE=<dir> (one Chrome trace
+naming the port's CUDA kernels), each against the default digests, then
+`bench_torch.py --runs 1 --warmups 0` as a child, whose JSON line must
+say `correct` with the card's and the forced host's values; these runs'
+launches join the kernels line.  The script prints its own wall
 before the result.  The last line of stdout is the result: {"ok": true,
 "device": {...}}; before it, one {"kernels": [...]} line.  Any failure
 raises and exits non-zero without a result line.  It writes only under
@@ -324,13 +332,14 @@ def _time_ms(fn, reps=None):
     return start.elapsed_time(end) / reps
 
 
-def _cupti_ms(fn, reps=50, tries=3):
+def _cupti_ms(fn, reps=50, tries=6):
     """The card's time of one call: the durations of the CUDA kernels that
     reps calls launch, as torch.profiler records them (CUPTI), summed and
     averaged over the calls, after a warm-up.  Launches back to back are
     not: the host's enqueue rate bounds their event time from below.  A
-    profile that recorded no kernel (seen once in a long run) is taken
-    again, up to `tries` profiles."""
+    profile that recorded no kernel is taken again a second later, up to
+    `tries` profiles: on the H100 about one profile in 30 records none,
+    and three in a row did once (a smoke run that failed on it)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -345,6 +354,7 @@ def _cupti_ms(fn, reps=50, tries=3):
         if times:
             return sum(times) / reps * 1e-3
         print('  (profile %d recorded no CUDA kernel)' % (k + 1), flush=True)
+        time.sleep(1)
     raise RuntimeError('the profiler recorded no CUDA kernel in %d profiles'
                        % tries)
 
@@ -515,18 +525,17 @@ def check_trace_bits(kernels, shapes, seed=200, walk_only=False):
 
 
 def make_input(what, work, reads, reads_sha):
-    """Writes reads() to work/reads.fastq and checks its digest; returns
-    (reads, bases)."""
+    """Writes reads() to work/reads.fastq and checks its digest (unless
+    reads_sha is None: no digests recorded on it); returns (reads,
+    bases)."""
     from porechop_tpu_torch.utils.synth import write_fastq
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     reads = reads()
     write_fastq(str(work / 'reads.fastq'), reads)
-    with open(work / 'reads.fastq', 'rb') as f:
-        if hashlib.sha256(f.read()).hexdigest() != reads_sha:
-            raise AssertionError('synthetic %s input differs from the one '
-                                 'the reference digests were recorded on'
-                                 % what)
+    if reads_sha is not None and _sha(work / 'reads.fastq') != reads_sha:
+        raise AssertionError('synthetic %s input differs from the one the '
+                             'reference digests were recorded on' % what)
     size = len(reads), sum(len(r[1]) for r in reads)
     print('synthesised the %s input, %d reads, %d bp, in %.1f s'
           % (what, size[0], size[1], time.perf_counter() - t0), flush=True)
@@ -732,11 +741,13 @@ def _free_port():
 
 def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
                   reads='reads.fastq', out='out_v1.fastq', out_sha=OUT_SHA[1],
-                  stdout_sha=STDOUT_SHA[1]):
+                  stdout_sha=STDOUT_SHA[1], load_stats=False):
     """The input (work/reads) at -v 1 as two torch.distributed ranks on
     the one card: the merged output and rank 0's transcript must be the
-    JAX package's (by default the 10 kb input's).  Adds the ranks' kernel
-    call shapes to shapes; returns the launches of both ranks together."""
+    JAX package's (by default the 10 kb input's).  With load_stats, under
+    PORECHOP_TPU_LOAD_STATS: each rank must have built fewer reads than
+    the input holds.  Adds the ranks' kernel call shapes to shapes;
+    returns the launches of both ranks together."""
     mode = '' if stream is None else ' --stream %d' % stream
     label = '%s two ranks%s -v 1' % (what, mode)
     d = _fresh_dir(work, 'ranks' + ('_mem' if stream is None else '_stream'),
@@ -751,6 +762,8 @@ def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
         env = dict(os.environ, PYTHONPATH=str(ROOT),
                    PORECHOP_TPU_COORDINATOR='127.0.0.1:%d' % port,
                    PORECHOP_TPU_NUM_PROCS='2', PORECHOP_TPU_PROC_ID=str(r))
+        if load_stats:
+            env['PORECHOP_TPU_LOAD_STATS'] = str(d / 'loadstats')
         procs.append(subprocess.Popen(
             [sys.executable, '-c', RANK_CODE] + argv, cwd=d, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
@@ -797,6 +810,14 @@ def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
                 stdout_sha)
     if outs[1][0]:
         raise AssertionError('%s: rank 1 wrote to stdout' % label)
+    if load_stats:
+        built = [json.loads((d / ('loadstats.rank%d' % r)).read_text())
+                 for r in range(2)]
+        print('  reads built by rank (PORECHOP_TPU_LOAD_STATS): %s'
+              % built, flush=True)
+        if not all(b['materialized'] < b['total'] for b in built):
+            raise AssertionError('%s: a rank built every read: %s'
+                                 % (label, built))
     return {label: launches}
 
 
@@ -1015,9 +1036,10 @@ def stretch_runs(cli, kernels, shapes):
 
 
 def on_card_runs(cli, kernels, shapes):
-    """Every run of the trimmer, in the order the module docstring gives;
-    shapes collects the two-rank runs' kernel call shapes.  Returns {run
-    label: launches}."""
+    """Every run of the trimmer but the instruments', in the order the
+    module docstring gives; shapes collects the two-rank runs' kernel call
+    shapes.  Returns ({run label: launches}, the 10 kb input's (work
+    directory, size))."""
     from porechop_tpu_torch.utils.synth import (LONG_READ_PARTS,
                                                  synth_barcoded, synth_mixed,
                                                  synth_reads)
@@ -1045,7 +1067,8 @@ def on_card_runs(cli, kernels, shapes):
         runs.update(run_barcoded(cli, kernels, bc_work, bc_size,
                                  stream=stream))
     for stream in (None, 2048):
-        runs.update(run_two_ranks(work, size, shapes, stream=stream))
+        runs.update(run_two_ranks(work, size, shapes, stream=stream,
+                                  load_stats=stream is None))
     runs.update(stretch_runs(cli, kernels, shapes))
 
     # Schemes the kernels refuse: on the host, no launch.
@@ -1076,6 +1099,64 @@ def on_card_runs(cli, kernels, shapes):
                                 one_flag))
 
     runs.update(hybrid_runs(cli, kernels, work, size))
+    return runs, (work, size)
+
+
+def instrument_runs(cli, kernels, work, size):
+    """The 10 kb input at -v 0 against the default digests under
+    PORECHOP_TPU_TIMING=1 (the five `[timing] phase` lines on stderr, in
+    order) and under PORECHOP_TPU_PROFILE=<dir> (one Chrome trace whose
+    kernel events name the port's CUDA kernels), then `bench_torch.py
+    --runs 1 --warmups 0` as a child: its JSON line must say `correct`
+    and hold the card's and the forced host's values.  Returns {run
+    label: launches}."""
+    err = io.StringIO()
+    with environment(PORECHOP_TPU_TIMING='1'), \
+            contextlib.redirect_stderr(err):
+        runs = run_main_path(cli, kernels, '10 kb timed', work, size,
+                             OUT_SHA, STDOUT_SHA, verbosities=(0,))
+    lines = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith('[timing] ')]
+    print('  %d timing lines; phases: %s' % (len(lines), '; '.join(
+        ' '.join(ln.split()[2:]) for ln in lines if ' phase ' in ln)),
+          flush=True)
+    labels = [ln.split()[2] for ln in lines if ' phase ' in ln]
+    if labels != ['load', 'detect', 'endtrim', 'middle', 'output']:
+        raise AssertionError('the timed run printed the phases %s' % labels)
+    trace_dir = WORK / 'profile'
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with environment(PORECHOP_TPU_PROFILE=str(trace_dir)):
+        runs.update(run_main_path(cli, kernels, '10 kb profiled', work,
+                                  size, OUT_SHA, STDOUT_SHA,
+                                  verbosities=(0,)))
+    traces = os.listdir(trace_dir)
+    if len(traces) != 1:
+        raise AssertionError('the profiled run wrote %s' % traces)
+    with open(trace_dir / traces[0]) as f:
+        events = json.load(f)['traceEvents']
+    named = collections.Counter(e['name'] for e in events
+                                if e.get('cat') == 'kernel')
+    ours = {k: n for k, n in named.items() if 'dp_wave_kernel' in k}
+    print('  profile %s: %d kernel events, the port\'s: %s'
+          % (traces[0], sum(named.values()), ours), flush=True)
+    if not ours:
+        raise AssertionError('the trace names none of the port\'s kernels: '
+                             '%s' % sorted(named)[:10])
+    t0 = time.perf_counter()
+    # No warm-up: the runs above left the input's and libraries' pages
+    # in memory.
+    r = subprocess.run([sys.executable, str(ROOT / 'bench_torch.py'),
+                        '--runs', '1', '--warmups', '0'], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError('bench_torch.py exited %d:\n%s'
+                             % (r.returncode, r.stderr[-3000:]))
+    line = json.loads(r.stdout.splitlines()[-1])
+    print('bench_torch.py --runs 1 --warmups 0 (%.1f s): %s'
+          % (time.perf_counter() - t0, json.dumps(line)), flush=True)
+    if not (line['correct'] is True and line['value'] > 0
+            and line['baseline_value'] > 0 and line['device'] == 'card'):
+        raise AssertionError('bench_torch.py: %s' % line)
     return runs
 
 
@@ -1142,10 +1223,13 @@ def main():
     timings['walk'] = check_trace_bits(kernels, WALK['shapes'],
                                        walk_only=True)['walk']
     with recorded_shapes(kernels) as shapes:
-        runs = on_card_runs(cli, kernels, shapes)
+        runs, ten_kb = on_card_runs(cli, kernels, shapes)
     check_no_bits_on_one_tile(shapes['bits'])
     check_launched_shapes(kernels, shapes, timings)
     dry_run(kernels)
+    # Last, after every kernel's timing: the profiled run's session is not
+    # among the ones _cupti_ms times kernels with.
+    runs.update(instrument_runs(cli, kernels, *ten_kb))
 
     line = []
     for name, spec_ in [*KERNELS.items(), ('walk', WALK)]:

@@ -10,9 +10,3 @@ Host path: FASTA/FASTQ IO, trim/split/bin decision logic, CLI.
 from .version import __version__
 
 __all__ = ['__version__']
-
-# Allocator tuning: keep large numpy buffers resident across phases
-# (utils/malloc_tune.py).  Opt out: PORECHOP_TPU_NO_MALLOC_TUNE=1.
-from .utils import malloc_tune as _malloc_tune
-
-_malloc_tune.configure()

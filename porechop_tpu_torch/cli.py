@@ -16,6 +16,16 @@ every local card (parallel/mesh.local_devices) and a multi-process run
 Other schemes, and launches too small to pay for a card, run on the host
 (ops/dispatch.py); under PORECHOP_TPU_FORCE_HOST=1 every alignment does,
 and no card is looked for.
+
+Instruments, read when main runs (the JAX package's switches):
+PORECHOP_TPU_TIMING=1 prints the in-memory run's phase walls on stderr
+(`[timing] phase <label> <s>`: load, detect, endtrim, middle, output),
+and the planner its own `[timing]` lines; PORECHOP_TPU_PROFILE=<dir>
+runs the pipeline under torch.profiler and writes one Chrome trace JSON
+into <dir>; PORECHOP_TPU_LOAD_STATS=<path> makes each rank of a
+multi-process run write what it parsed (parallel/multihost.py).  main
+also applies the allocator tuning (utils/malloc_tune.py;
+PORECHOP_TPU_NO_MALLOC_TUNE=1 opts out).
 """
 
 import argparse
@@ -23,8 +33,9 @@ import copy
 import multiprocessing
 import os
 import sys
+import time
 
-from .ops.dispatch import force_host, resolve_devices
+from .ops.dispatch import force_host, resolve_devices, timing
 from .parallel import mesh, multihost
 from .pipeline import stream as stream_mod
 from .pipeline.output import output_reads
@@ -41,6 +52,7 @@ from .pipeline.phases import (add_full_barcode_adapter_sets,
                               print_detection_block, print_end_trim_block,
                               print_end_trim_header, print_middle_block,
                               trim_counts)
+from .utils import malloc_tune
 from .utils.text import TrimmerHelpFormatter, bold_underline
 from .version import __version__
 
@@ -49,9 +61,48 @@ def main(argv=None, device=None):
     """Runs the trimmer.  device: where the alignments run (a torch device,
     its name, or a list of device entries, as a list or comma-separated);
     default the --device flag, else the local CUDA cards."""
+    malloc_tune.configure()
     args = get_arguments(argv)
-    _run_pipeline(args, device if device is not None else args.device)
+    profile_dir = os.environ.get('PORECHOP_TPU_PROFILE')
+    prof = _start_profile() if profile_dir else None
+    try:
+        _run_pipeline(args, device if device is not None else args.device)
+    finally:
+        if prof is not None:
+            _write_profile(prof, profile_dir)
     multihost.finish()
+
+
+def _start_profile():
+    """A started torch.profiler session: host activity, and the cards'
+    unless every job runs on the host."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if not force_host() and torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _write_profile(prof, profile_dir):
+    """Stops the session and writes its Chrome trace into profile_dir,
+    named by process and time so that ranks and runs do not collide."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, 'trace.%d.%d.json' % (os.getpid(), time.time_ns())))
+
+
+def _mark(label, t0):
+    """The PORECHOP_TPU_TIMING phase-wall line (porechop_tpu/cli.py
+    _mark); returns a fresh t0.  Each mark follows a phase whose results
+    are on the host already, so none needs a synchronise."""
+    if timing():
+        print('[timing] phase %-10s %.3fs' % (label,
+                                              time.perf_counter() - t0),
+              file=sys.stderr, flush=True)
+    return time.perf_counter()
 
 
 def _run_pipeline(args, device_name):
@@ -79,6 +130,7 @@ def _run_pipeline(args, device_name):
     # re-emits the full reference transcript: at -v 1 from global
     # counters, at -v >= 2 with the per-read dumps gathered from all ranks
     # in read order.
+    t0 = time.perf_counter()
     if mh:
         reads, check_reads, read_type, n_total, n_check = \
             multihost.load_reads_block(args.input, args.verbosity,
@@ -89,8 +141,10 @@ def _run_pipeline(args, device_name):
                                                    args.print_dest,
                                                    args.check_reads)
         n_check = len(check_reads)
+    t0 = _mark('load', t0)
     matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
         args, check_reads, n_check, device, mh)
+    t0 = _mark('detect', t0)
     phase_verbosity = 0 if mh else args.verbosity
 
     if matching_sets:
@@ -105,6 +159,7 @@ def _run_pipeline(args, device_name):
             collect_dumps=args.verbosity if mh else 0)
         display_read_end_trimming_summary(reads, phase_verbosity,
                                           args.print_dest)
+        t0 = _mark('endtrim', t0)
         dumps3 = []
         if not args.no_split:
             dumps3 = find_adapters_in_read_middles(
@@ -123,6 +178,7 @@ def _run_pipeline(args, device_name):
         print('No adapters found - output reads are unchanged from input reads\n',
               file=args.print_dest)
 
+    t0 = _mark('middle', t0)
     if mh:
         multihost.output_and_merge(reads, args, read_type)
     else:
@@ -131,6 +187,7 @@ def _run_pipeline(args, device_name):
                      args.min_split_read_size, args.print_dest,
                      args.barcode_dir, args.input, args.untrimmed,
                      args.threads, args.discard_unassigned)
+    _mark('output', t0)
 
 
 def _find_adapter_sets(args, check_reads, n_check, device, mh):

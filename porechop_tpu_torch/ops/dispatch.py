@@ -32,6 +32,9 @@ the native engine, linear ones through the spec) and touches no CUDA
 device; PORECHOP_TPU_NO_NATIVE=1 turns the size route off.
 PORECHOP_TPU_ENGINE=v1 sends every device chunk through the stat-carrying
 engine (ops/engine_v1.run_jobs) on the first device entry.
+PORECHOP_TPU_TIMING=1 prints the planner's `[timing]` lines on stderr, in
+the JAX package's words: prefilter survivors, launches enqueued and
+harvested (padded cells/s), the work share and native batches.
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
 only decides whether the kernels or their plain versions run.
@@ -49,6 +52,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -96,6 +100,16 @@ ROUTES = {'device': [0, 0], 'native': [0, 0], 'host': [0, 0]}
 def reset_routes() -> None:
     for v in ROUTES.values():
         v[:] = [0, 0]
+
+
+def timing() -> bool:
+    """PORECHOP_TPU_TIMING (any value), read at each use: the CLI's phase
+    walls and the planner's `[timing]` lines on stderr."""
+    return bool(os.environ.get('PORECHOP_TPU_TIMING'))
+
+
+def _timing_line(text):
+    print('[timing] ' + text, file=sys.stderr, flush=True)
 
 
 def force_host() -> bool:
@@ -463,6 +477,10 @@ class AlignJobs:
             matches[idx] = sres['matches']
             full_len[idx] = sres['full_len']
             full_pct[idx] = sres['full_pct']
+        if timing():
+            _timing_line('score prefilter: %d/%d lanes survived '
+                         '(%d full-result lanes)'
+                         % (int(cand.sum()), P, int((~score_lanes).sum())))
         return {'matches': matches, 'full_len': full_len,
                 'full_pct': full_pct}
 
@@ -561,7 +579,10 @@ class AlignJobs:
         asynchronous, so they run back to back while the host moves on),
         or under PORECHOP_TPU_ENGINE=v1 each chunk through the v1 engine."""
         self._count('device', work, padded=True)
+        t0 = time.perf_counter()
         if engine_v1.selected():
+            # Each chunk runs to its end here, as the JAX package's
+            # ungathered launches do: one line, no harvest.
             for lb, amax, chunk in work:
                 res = engine_v1.run_jobs(self.windows, self.adapters,
                                          self.pairs[chunk], lb, amax,
@@ -569,13 +590,30 @@ class AlignJobs:
                 for f in out:
                     out[f][chunk] = res[f]
                 progress(chunk)
+            if timing() and work:
+                _timing_line('enqueued %d launches in %.3fs'
+                             % (len(work), time.perf_counter() - t0))
             return
         pending = [(chunk, self._launch_chunk(chunk, lb, amax, tables,
                                               rung_w, rung_a))
                    for lb, amax, chunk in work]
+        if timing() and work:
+            _timing_line('enqueued %d launches in %.3fs'
+                         % (len(work), time.perf_counter() - t0))
+        # The JAX package starts every harvest's device-to-host copies
+        # here (copy_to_host_async) and notes their failures under the
+        # switch; the port's harvest copies each result when it reads it,
+        # so it has no such step and no such line.
+        t0 = time.perf_counter()
         for chunk, h in pending:
             self._harvest(chunk, h, out)
             progress(chunk)
+        if timing() and pending:
+            dt = time.perf_counter() - t0
+            cells = sum(_pad_cells(lb, amax, len(c)) for lb, amax, c in work)
+            _timing_line('harvested %d launches in %.3fs (%.2e cells/s '
+                         'incl. enqueue-overlap)'
+                         % (len(pending), dt, cells / max(dt, 1e-9)))
 
     @staticmethod
     def _count(route, work, padded=False):
@@ -667,6 +705,9 @@ class AlignJobs:
                 kept[n] = (lb, amax, chunk[:keep])
             else:
                 kept.pop(n)
+        if timing() and c_host:
+            _timing_line('work-share: %.2e cells device, %.2e native'
+                         % (c_dev, c_host))
         return kept
 
     def _merge_adapter_rungs(self, buckets, hybrid, merge) -> None:
@@ -780,10 +821,19 @@ class AlignJobs:
             # jobs would otherwise copy every read).
             windows, wi = _named(self.windows, pairs[:, 0])
             adapters, ai = _named(self.adapters, pairs[:, 1])
-            return native.align_batch(
+            t0 = time.perf_counter()
+            res = native.align_batch(
                 windows, adapters, np.column_stack([wi, ai]), self.scoring,
                 entry=('align_simd_scores' if self._score_only
                        else 'align_simd_batch'), n_threads=n_threads)
+            if timing() and res is not None:
+                dt = time.perf_counter() - t0
+                cells = sum(len(windows[w]) * len(adapters[a])
+                            for w, a in zip(wi, ai))
+                _timing_line('native batch P=%d: %.3fs (%.2e cells/s%s)'
+                             % (len(todo), dt, cells / max(dt, 1e-9),
+                                ', score-only' if self._score_only else ''))
+            return res
         res = np.zeros((len(pairs), 9), dtype=np.int64)
         for k, (w, a) in enumerate(pairs):
             r = spec.align_linear(self.windows[w], self.adapters[a],

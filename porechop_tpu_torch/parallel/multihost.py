@@ -16,6 +16,8 @@ Input I/O is partitioned (reference porechop.py:224-283): every rank runs a
 cheap record-counting scan, then parses and materializes ONLY its own
 record block (plus its slice of the --check_reads sample head), so N ranks
 hold 1/N of the reads each and decode 1/N of the records into objects.
+PORECHOP_TPU_LOAD_STATS=<path> makes each rank write how many records it
+decoded into reads, and of how many, to <path>.rank<r> as JSON.
 
 Verbosity contract: rank 0 prints the full reference transcript
 byte-identically to a single-process run.  At -v 1 it is rebuilt from
@@ -147,20 +149,41 @@ def load_reads_block(input_file_or_directory, verbosity, print_dest,
     """Partitioned twin of pipeline.phases.load_reads (reference
     porechop.py:224-283): a cheap record-counting scan first, then parses
     that build ONLY this rank's contiguous record block and its slice of
-    the global --check_reads sample.  The v1 'Loading reads' text prints
-    GLOBAL totals, as a single-process run would.  Returns
-    (reads_block, check_block, read_type, n_total, n_check_total)."""
+    the global --check_reads sample.  For file input, check read g is
+    record g, so the check reads inside the block are the block's own
+    Read objects, as a single process shares them.  The v1 'Loading
+    reads' text prints GLOBAL totals, as a single-process run would.
+    Returns (reads_block, check_block, read_type, n_total,
+    n_check_total)."""
     input_ = input_file_or_directory
     if not os.path.exists(input_):
         sys.exit('Error: could not find ' + input_)
     n = stream.count_records(input_)
     if verbosity > 0:
         stream.print_load_text(input_, print_dest, total=n)
-    reads = list(stream.iter_input_reads(input_, block_slice(n)))
+    lo, hi = block_slice(n)
+    reads = list(stream.iter_input_reads(input_, (lo, hi)))
     _, n_check = stream.collect_check_reads(input_, check_read_count,
                                             record_range=(0, 0))
-    check, _ = stream.collect_check_reads(input_, check_read_count,
-                                          record_range=block_slice(n_check))
+    clo, chi = block_slice(n_check)
+    if os.path.isdir(input_):
+        # Per-file heads: a check index is not a record index.
+        check, _ = stream.collect_check_reads(input_, check_read_count,
+                                              record_range=(clo, chi))
+        built = len(reads) + len(check)
+    else:
+        # clo <= lo and chi <= hi (n_check <= n): the slice's part before
+        # the block is parsed, the rest shared.
+        check = []
+        if clo < min(chi, lo):
+            check, _ = stream.collect_check_reads(
+                input_, check_read_count, record_range=(clo, min(chi, lo)))
+        built = len(reads) + len(check)
+        check += reads[max(clo, lo) - lo:max(chi - lo, 0)]
+    stats_path = os.environ.get('PORECHOP_TPU_LOAD_STATS')
+    if stats_path:
+        with open('%s.rank%d' % (stats_path, rank()), 'w') as f:
+            json.dump({'materialized': built, 'total': n}, f)
     return reads, check, stream.input_read_type(input_), n, n_check
 
 

@@ -1,5 +1,8 @@
 """glibc allocator tuning (the port's copy of
-porechop_tpu/utils/malloc_tune.py), applied when the package is imported.
+porechop_tpu/utils/malloc_tune.py), applied by the CLI's entry point
+(cli.main: `python -m porechop_tpu_torch`, every rank of a multi-process
+run) and not when the package is imported, so that a process which only
+imports the library keeps glibc's defaults.
 
 numpy allocates large buffers with mmap, which glibc unmaps on free, so
 every pipeline phase faults its working set in afresh.  Raising

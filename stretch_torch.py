@@ -18,7 +18,11 @@ run is `python -m porechop_tpu_torch -i reads.fastq.gz -o out.fastq -v 0
 -t 4 --stream 20000` in a fresh process (through RUNNER, which reports
 the process's own numbers); with --multihost the same as two ranks.  It
 prints the card's name and power limit, then one JSON line per run: wall
-(the processes' start to their exit), reads/s, peak RSS, peak
+(the processes' start to their exit), reads/s, the time inside cli.main
+(run_s, with the card's context and the libraries set up before it, and
+run_s_with_setup, with them as earlier records counted it), each rank's
+wall split into interpreter start-up, `import torch`, importing the
+port, CUDA context, library load, run and exit, peak RSS, peak
 device MiB and kernel launches per rank, and the output's SHA-256 against
 the JAX package's digest recorded for those parameters (at -v 1 the
 transcript's too).  A mismatch, a failed run or a wrong input exits
@@ -43,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,8 +101,16 @@ KERNEL_NAMES = ('forward_score', 'forward_stats', 'forward_walk',
 # inherits the forking parent's high-water mark across exec; VmHWM does
 # not), or where the kernel gives no VmHWM the largest resident size read
 # from /proc/self/statm every 0.1 s; ru_maxrss is reported beside it.
+# Before cli.main it creates the CUDA context on every card the run will
+# use (none under PORECHOP_TPU_FORCE_HOST or on CPU entries) and loads the
+# libraries the run calls (the kernels on a card, the native engine under
+# PORECHOP_TPU_FORCE_HOST), so that run_s holds neither; `marks` are its
+# wall-clock times (time.time(), comparable with the parent's) at its first
+# statement, after `import torch`, after importing the port, after the
+# context, after the libraries, and before and after cli.main.
 RUNNER = r'''
 import json, os, resource, sys, threading, time
+marks = {'interpreter': time.time()}
 sampled_kib = [0]
 def sample(page_kib=os.sysconf('SC_PAGE_SIZE') // 1024):
     try:
@@ -115,8 +128,31 @@ def peak_mib():
         return int(hwm[0].split()[1]) / 1024, 'VmHWM'
     return sampled_kib[0] / 1024, 'statm every 0.1 s'
 import torch
-from porechop_tpu_torch import cli
-from porechop_tpu_torch.ops import kernels
+marks['torch'] = time.time()
+from porechop_tpu_torch import cli, native
+from porechop_tpu_torch.ops import dispatch, kernels
+from porechop_tpu_torch.parallel import mesh
+marks['port_import'] = time.time()
+profile, argv = sys.argv[1] == '1', sys.argv[2:]
+cards = []
+if not dispatch.force_host():
+    # As cli.main chooses them; without a card resolve_devices raises.
+    named = argv[argv.index('--device') + 1] if '--device' in argv else None
+    cards = [d for d in dispatch.resolve_devices(named) if d.type == 'cuda']
+    if named is None and os.environ.get('PORECHOP_TPU_COORDINATOR'):
+        cards = [torch.device('cuda', int(os.environ['PORECHOP_TPU_PROC_ID'])
+                              % torch.cuda.device_count())]
+    elif named is None:
+        cards = mesh.local_devices()
+for d in cards:
+    torch.cuda.synchronize(d)
+marks['cuda_context'] = time.time()
+if cards:
+    for name in kernels.SOURCES:
+        kernels._lib(name)
+if dispatch.force_host():
+    native.library()
+marks['library_load'] = time.time()
 detection = {}
 find_adapter_sets = cli._find_adapter_sets
 def finding(*args, **kwargs):
@@ -124,18 +160,19 @@ def finding(*args, **kwargs):
     detection['rss_mib'] = peak_mib()[0]
     return found
 cli._find_adapter_sets = finding
-profile, argv = sys.argv[1] == '1', sys.argv[2:]
 prof = None
 if profile:
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     prof.__enter__()
+marks['start'] = time.time()
 t0 = time.perf_counter()
 cli.main(argv)
 if torch.cuda.is_initialized():
     torch.cuda.synchronize()
 run_s = time.perf_counter() - t0
+marks['end'] = time.time()
 busy_s = None
 if prof is not None:
     prof.__exit__(None, None, None)
@@ -151,8 +188,17 @@ print('STRETCH ' + json.dumps({
     'ru_maxrss_mib': resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 1024,
     'device_mib': peak / 2 ** 20, 'launches': dict(kernels.LAUNCHES),
-    'busy_s': busy_s}), file=sys.stderr)
+    'busy_s': busy_s, 'marks': marks}), file=sys.stderr)
 '''
+# The parts of a fresh process's wall, from the parent's start and exit
+# times and the runner's marks: (part, the mark it begins at, the mark it
+# ends at); None is the process's start or its exit.
+PARTS = (('interpreter', None, 'interpreter'),
+         ('import_torch', 'interpreter', 'torch'),
+         ('port_import', 'torch', 'port_import'),
+         ('cuda_context', 'port_import', 'cuda_context'),
+         ('library_load', 'cuda_context', 'library_load'),
+         ('run', 'start', 'end'), ('exit', 'end', None))
 
 
 def card():
@@ -213,40 +259,59 @@ def _stats(err):
     return json.loads(lines[-1][len('STRETCH '):]) if lines else None
 
 
-def run_child(tree, argv, cwd, ranks=1, profile=False):
+def _parts(started, marks, exited):
+    """{part: seconds} of one fresh process (PARTS), from the wall-clock
+    time of its start, the runner's marks and the time of its exit."""
+    return {name: (marks[end] if end else exited)
+            - (marks[begin] if begin else started)
+            for name, begin, end in PARTS}
+
+
+def run_child(tree, argv, cwd, ranks=1, profile=False, env=None):
     """The port of checkout `tree` in `ranks` fresh processes in cwd (two:
-    torch.distributed ranks on 127.0.0.1).  Returns (wall seconds from the
-    first start to the last exit, [stats by rank], [stdout bytes by
-    rank]); raises if a rank fails."""
-    env = dict(os.environ, PYTHONPATH=str(tree))
+    torch.distributed ranks on 127.0.0.1), with the variables `env` added.
+    Returns (wall seconds from the first start to the last exit, [stats by
+    rank], [stdout bytes by rank]); each rank's stats carry its wall split
+    by PARTS (`parts_s`) and its `[timing]` lines on stderr
+    (`timing_lines`).  Raises if a rank fails."""
+    env = dict(os.environ, PYTHONPATH=str(tree), **(env or {}))
     port = _free_port()
-    procs = []
+    procs, started = [], []
     t0 = time.perf_counter()
     for r in range(ranks):
         if ranks > 1:
             env = dict(env, PORECHOP_TPU_COORDINATOR='127.0.0.1:%d' % port,
                        PORECHOP_TPU_NUM_PROCS=str(ranks),
                        PORECHOP_TPU_PROC_ID=str(r))
+        started.append(time.time())
         procs.append(subprocess.Popen(
             [sys.executable, '-c', RUNNER, '1' if profile else '0', *argv],
             cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    outs = []
+
+    def wait(p):
+        out = p.communicate(timeout=CHILD_TIMEOUT)
+        return out, time.time()
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=CHILD_TIMEOUT))
+        # A thread a rank, so that each rank's exit is timed when it comes.
+        with ThreadPoolExecutor(max_workers=ranks) as pool:
+            outs = list(pool.map(wait, procs))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    stats = [_stats(err) for _, err in outs]
-    for r, (p, (_, err), s) in enumerate(zip(procs, outs, stats)):
+    stats = [_stats(err) for (_, err), _ in outs]
+    for r, (p, ((_, err), exited), s) in enumerate(zip(procs, outs, stats)):
         if p.returncode != 0 or s is None:
             raise RuntimeError('stretch run of %s, rank %d, exited %d:\n%s'
                                % (tree, r, p.returncode,
                                   err.decode(errors='replace')[-3000:]))
-    return wall, stats, [out for out, _ in outs]
+        s['parts_s'] = _parts(started[r], s['marks'], exited)
+        s['timing_lines'] = [
+            ln for ln in err.decode(errors='replace').splitlines()
+            if ln.startswith('[timing] ')]
+    return wall, stats, [out for (out, _), _ in outs]
 
 
 def run(tree, input_path, reads, ranks, device=None, profile=False,
@@ -278,6 +343,12 @@ def run(tree, input_path, reads, ranks, device=None, profile=False,
         'verbosity': 0, 'ranks': ranks, 'device': device or 'card',
         'wall_s': wall, 'reads_per_s': reads / wall,
         'run_s': max(s['run_s'] for s in stats),
+        # run_s as the runner measured it before it set up the card and
+        # the libraries ahead of cli.main.
+        'run_s_with_setup': max(
+            s['run_s'] + s['parts_s']['cuda_context']
+            + s['parts_s']['library_load'] for s in stats),
+        'parts_s_by_rank': [s['parts_s'] for s in stats],
         'peak_rss_mib': max(s['rss_mib'] for s in stats),
         'peak_rss_mib_by_rank': [s['rss_mib'] for s in stats],
         'peak_rss_from': stats[0]['rss_from'],

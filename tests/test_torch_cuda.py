@@ -2,7 +2,8 @@
 PyTorch version on the card (exact: every output is an integer, and the
 bits are compared in the region the walker reads), the trace-bit call
 with its walk (forward_walk) and the standalone walk enqueued with no host
-synchronisation, and the CLI on the card against the CPU run.  They
+synchronisation, the CLI on the card against the CPU run, and
+bench_torch.py at a small size.  They
 skip without a CUDA device; on a machine with one run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -13,7 +14,10 @@ use).  """
 import collections
 import contextlib
 import io
+import json
 import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -385,6 +389,23 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     finally:
         os.chdir(old)
     assert outs[0] == outs[1]
+
+
+def test_bench_on_the_card(card):
+    """bench_torch.py at 512 x 10 kb, one run a side: the card's and the
+    forced host's outputs agree, every phase is timed and the card held
+    memory."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, 'bench_torch.py', '--runs', '1',
+                        '--reads', '512'], cwd=root, capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.splitlines()[-1])
+    assert line['correct'] is True and line['device'] == 'card'
+    assert line['value'] > 0 and line['baseline_value'] > 0
+    assert list(line['phases_s']) == ['load', 'detect', 'endtrim', 'middle',
+                                      'output']
+    assert line['peak_device_mib'] > 0
 
 
 def _entries_equal_one_entry(entries):

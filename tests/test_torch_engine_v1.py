@@ -20,6 +20,7 @@ from porechop_tpu_torch import cli as torch_cli
 from porechop_tpu_torch.ops import dispatch, engine_v1, kernels
 from porechop_tpu_torch.utils import malloc_tune
 from porechop_tpu_torch.utils.synth import synth_reads, write_fastq
+from porechop_tpu_torch.version import __version__
 
 from .test_torch_cases import MODES, align_jobs, one_torch_thread, run_mode
 
@@ -186,13 +187,21 @@ def test_malloc_tune_applies_once(monkeypatch):
 
 @pytest.mark.parametrize('opt_out', [False, True])
 def test_importing_the_port_applies_the_tuning(opt_out):
+    """Importing the port (its CLI module included) leaves glibc's
+    allocator alone; cli.main applies the tuning, unless opted out."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     env.pop('PORECHOP_TPU_NO_MALLOC_TUNE', None)
     if opt_out:
         env['PORECHOP_TPU_NO_MALLOC_TUNE'] = '1'
     r = subprocess.run(
-        [sys.executable, '-c', 'import porechop_tpu_torch.utils.malloc_tune '
-         'as m; print(m._done)'], env=env, capture_output=True, text=True,
+        [sys.executable, '-c', 'import porechop_tpu_torch.cli as cli\n'
+         'from porechop_tpu_torch.utils import malloc_tune as m\n'
+         'print(m._done)\n'
+         'try:\n'
+         '    cli.main(["--version"])\n'
+         'except SystemExit:\n'
+         '    pass\n'
+         'print(m._done)'], env=env, capture_output=True, text=True,
         timeout=120)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == str(not opt_out)
+    assert r.stdout.split() == ['False', __version__, str(not opt_out)]

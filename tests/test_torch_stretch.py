@@ -237,7 +237,11 @@ def _fake_child(body, walls):
                   'launches': {'forward_score': 3, 'forward_stats': 2,
                                'forward_walk': 7, 'forward_tiled': 0,
                                'walk': 0},
-                  'busy_s': 0.1 if profile else None} for r in range(ranks)]
+                  'busy_s': 0.1 if profile else None,
+                  'parts_s': {'interpreter': 0.25, 'import_torch': 3.0,
+                              'port_import': 0.5, 'cuda_context': 0.25,
+                              'library_load': 0.125, 'run': 1.5,
+                              'exit': 1.0}} for r in range(ranks)]
         return walls.pop(0), stats, [b''] * ranks
     return run_child, calls
 
@@ -269,7 +273,8 @@ def fake_stretch(tmp_path, monkeypatch, capsys):
 
 RECORD_KEYS = {
     'config', 'tree', 'card', 'reads', 'read_len', 'chunk', 'verbosity',
-    'ranks', 'device', 'wall_s', 'reads_per_s', 'run_s', 'peak_rss_mib',
+    'ranks', 'device', 'wall_s', 'reads_per_s', 'run_s', 'run_s_with_setup',
+    'parts_s_by_rank', 'peak_rss_mib',
     'peak_rss_mib_by_rank', 'peak_rss_from', 'ru_maxrss_mib_by_rank',
     'peak_rss_mib_after_detection_by_rank',
     'peak_device_mib',
@@ -290,6 +295,7 @@ def test_stretch_records_keep_their_fields(fake_stretch):
         assert r['reads_per_s'] == 200_000 / 10.0
         assert r['launches']['forward_walk'] == 7 * r['ranks']
     assert records[1]['peak_rss_mib_by_rank'] == [900.0, 901.0]
+    assert records[0]['run_s_with_setup'] == 1.5 + 0.25 + 0.125
     assert records[2]['device_idle_share'] == pytest.approx(1 - 0.1 / 1.5)
     assert calls[0][2] == ['-i', 'reads.fastq.gz', '-o', 'out.fastq', '-v',
                            '0', '-t', '4', '--stream', '20000']
@@ -337,3 +343,8 @@ def test_stretch_runs_the_cli_in_fresh_processes(tmp_path, monkeypatch,
         assert r['jax_equal'] is None and r['output_bytes'] > 40 * 1000
         assert r['peak_rss_mib'] > 0 and r['peak_device_mib'] == 0
         assert not any(r['launches'].values())
+        for parts in r['parts_s_by_rank']:
+            assert list(parts) == [p for p, *_ in stretch_torch.PARTS]
+            assert all(t >= 0 for t in parts.values())
+            assert parts['cuda_context'] < 0.5     # no card on CPU entries
+            assert sum(parts.values()) <= r['wall_s']
