@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (porechop_tpu_torch) on one
-NVIDIA GPU.  Run from the repository root with no arguments:
+NVIDIA GPU, or on every card of a host with several.  Run from the
+repository root with no arguments:
 
     python3 chip_smoke.py
 
@@ -33,8 +34,9 @@ output and rank 0's transcript must be the single-process run's.  Then
 the stretch input's head (stretch_torch.py: 200,000 gzipped 1 kb reads,
 written by a process pool) streamed in ten chunks of 20,000, in this
 process at -v 0 (the device memory allocated after the last chunk within
-1 MiB of that after the first) and as two ranks at -v 1, against the JAX
-package's digests recorded in stretch_torch.py.  Then
+1 MiB of that after the first, on all cards together) and as two ranks
+at -v 1, against the JAX package's digests recorded in stretch_torch.py.
+Then
 the schemes the kernels refuse, which run on the host (the native Gotoh
 engine built with g++, the linear executable spec): the 10 kb input at
 -v 0 and -v 1 under --scoring_scheme 3,-6,-2,-5 and 16 reads of 1 kb at
@@ -45,7 +47,12 @@ kernel launch.  Last, lanes split over two device entries on the one card
 already have, each kernel launched more often than on one entry (and on
 every named card).  On a host with several cards a run
 with no --device splits over all of them, so there the entry runs are
-held against the same runs on cuda:0 alone.  Last, the hybrid and the
+held against the same runs on cuda:0 alone.  On such a host every run
+on two or more distinct cards (no --device, cuda:0,cuda:1) must launch
+each kernel it launches on every card, as often on each card but the
+first, the first card's surplus being the middle phase's replay (which
+does not split, as the JAX package's does not shard), and the two ranks
+run on two distinct cards.  Last, the hybrid and the
 second engine, each against the default digests: the 10 kb input at -v 0
 and -v 1 under PORECHOP_TPU_FORCE_HOST=1 (every job on the native host
 engine: no launch and no byte allocated on the card); at -v 1 with the
@@ -62,9 +69,12 @@ route.  After the runs, every kernel is held against its plain version
 at every (lanes, L, A) that any on-card run launched it at (the two-rank
 runs' included) and the first checks did not cover; at every trace-bit
 shape, forward_walk, forward_tiled (bits, best, cells, flags) and the
-standalone walk on its bits.  Then the dry-run entry points
-(porechop_tpu_torch/entry.py): entry() on the card against the CPU, and
-dryrun_multichip(2) on cuda:0,cuda:0.  Last, the instruments: the 10 kb
+standalone walk on its bits; on a host with several cards, every kernel
+also on each card but cuda:0 at shapes the runs launched there (on one
+card, one line says that the multi-card phases did not run).  Then the
+dry-run entry points (porechop_tpu_torch/entry.py): entry() on the card
+against the CPU, dryrun_multichip(2) on cuda:0,cuda:0 and, on n >= 2
+cards, dryrun_multichip(n) on the cards.  Last, the instruments: the 10 kb
 input at -v 0 under PORECHOP_TPU_TIMING=1 (the five phase lines on
 stderr, in order) and under PORECHOP_TPU_PROFILE=<dir> (one Chrome trace
 naming the port's CUDA kernels), each against the default digests, then
@@ -204,6 +214,7 @@ runpy.run_module('porechop_tpu_torch', run_name='__main__', alter_sys=True)
 print(json.dumps({'peak_bytes': max(
     torch.cuda.max_memory_allocated(k)
     for k in range(torch.cuda.device_count())),
+                  'cards': sorted({d for _, d in kernels.DEVICE_LAUNCHES}),
                   'launches': kernels.LAUNCHES,
                   'routes': dispatch.ROUTES,
                   'shapes': {n: sorted(v) for n, v in shapes.items()}}),
@@ -580,14 +591,20 @@ def _routes():
     return {r: list(v) for r, v in dispatch.ROUTES.items()}
 
 
-def run_cli(cli, kernels, label, d, argv, size, on_card=True):
+def run_cli(cli, kernels, label, d, argv, size, on_card=True,
+            first_card_only=False):
     """One in-process run of the trimmer in directory d, on the card.
     With on_card, every kernel of the path must launch (or, given a set
     of kernel names, those) and no other, on every device that --device
     names in argv (without it, on every card: a single process splits
     over all of them), each trace-bit call walking inside its launch;
-    without on_card, none may, and nothing may be allocated on a card.  Returns (its launches, its trace-bit launch shapes, its
-    stdout with d's path as <WORKDIR>)."""
+    without on_card, none may, and nothing may be allocated on a card.
+    On two or more distinct cards (check_cards) each card must launch
+    every kernel that the run launches, the same number of times but for
+    the middle phase's replay, which runs on the first card alone; with
+    first_card_only (the v1 engine, which does not split either), every
+    launch must be on the first card.  Returns (its launches, its
+    trace-bit launch shapes, its stdout with d's path as <WORKDIR>)."""
     from porechop_tpu_torch.ops import dispatch
     kernels.reset_launches()
     dispatch.reset_routes()
@@ -596,11 +613,13 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     buf = io.StringIO()
     os.chdir(d)
     try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with replay_launches(kernels) as replayed:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            for k in _cards():
+                torch.cuda.synchronize(k)
+            wall = time.perf_counter() - t0
     finally:
         os.chdir(ROOT)
     launches = dict(kernels.LAUNCHES)
@@ -625,12 +644,21 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
         extra = [k for k in ALL_KERNELS if k not in want and launches[k]]
         if extra:
             raise AssertionError('%s launched %s' % (label, extra))
-        named = ({'cuda:%d' % k for k in _cards()} if '--device' not in argv
-                 else set(argv[argv.index('--device') + 1].split(',')))
-        idle = named - {dev for _, dev in kernels.DEVICE_LAUNCHES}
+        named = (['cuda:%d' % k for k in _cards()] if '--device' not in argv
+                 else argv[argv.index('--device') + 1].split(','))
+        if first_card_only:
+            named = named[:1]
+        cards = sorted(set(named), key=named.index)
+        stray = {dev for _, dev in kernels.DEVICE_LAUNCHES} - set(cards)
+        if stray:
+            raise AssertionError('%s launched on %s, which it was not given'
+                                 % (label, sorted(stray)))
+        idle = set(cards) - {dev for _, dev in kernels.DEVICE_LAUNCHES}
         if idle:
             raise AssertionError('%s launched nothing on %s'
                                  % (label, sorted(idle)))
+        check_cards(label, cards, launches, kernels.DEVICE_LAUNCHES,
+                    replayed)
         _check_walks(label, launches, kernels.DEVICE_LAUNCHES,
                      kernels.TILED_CALLS)
     else:
@@ -642,6 +670,50 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True):
             raise AssertionError('%s allocated memory on cards %s'
                                  % (label, held))
     return launches, tiled, buf.getvalue().replace(str(d), '<WORKDIR>')
+
+
+@contextlib.contextmanager
+def replay_launches(kernels):
+    """The launches of each kernel made inside the middle phase's device
+    replay (middle.ReplayRunner.round) within the block, into a Counter."""
+    from porechop_tpu_torch.ops import middle
+    counts = collections.Counter()
+    round_ = middle.ReplayRunner.round
+
+    def counting(self, *args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        try:
+            return round_(self, *args, **kwargs)
+        finally:
+            counts.update({k: n - before[k]
+                           for k, n in kernels.LAUNCHES.items()})
+    middle.ReplayRunner.round = counting
+    try:
+        yield counts
+    finally:
+        middle.ReplayRunner.round = round_
+
+
+def check_cards(label, cards, launches, by_device, replayed):
+    """For a run over two or more distinct cards (device names, the first
+    one first): every kernel that the run launched, launched on every
+    card, each card but the first as often as the others, and the first
+    card's surplus exactly the replay's launches (replayed: a Counter),
+    the one device call of the run that does not split, as in the JAX
+    package, whose replay does not shard either.  Prints the launches by
+    card and what ran on the first card alone."""
+    if len(cards) < 2:
+        return
+    ran = [k for k in ALL_KERNELS if launches[k]]
+    table = {k: [by_device[(k, c)] for c in cards] for k in ran}
+    print('  launches by card (%s): %s; on %s alone: the replay\'s %s'
+          % (', '.join(cards), table, cards[0], dict(+replayed)), flush=True)
+    for k, n in table.items():
+        if not all(n) or len(set(n[1:])) != 1 \
+                or n[0] - n[1] != replayed[k]:
+            raise AssertionError(
+                '%s: %s launched %s on %s, the replay %d of them'
+                % (label, k, n, cards, replayed[k]))
 
 
 def _check_walks(label, launches, by_device=None, calls=None):
@@ -675,12 +747,13 @@ def _check_text(label, d, text, want_sha):
 
 def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
                   stream=None, split=False, flags=(), verbosities=(0, 1),
-                  on_card=True):
+                  on_card=True, first_card_only=False):
     """One input (work/reads.fastq) through the trimming run to -o, on the
     card, at -v 0 and -v 1, in memory or with --stream, with flags added;
     with split, each run must cut at least one trace-bit launch into
-    column chunks; without on_card, no run may launch a kernel.  Returns
-    {run label: launches of that run}."""
+    column chunks; without on_card, no run may launch a kernel;
+    first_card_only as run_cli's.  Returns {run label: launches of that
+    run}."""
     mode = '' if stream is None else ' --stream %d' % stream
     mode += ''.join(' ' + f for f in flags)
     launches = {}
@@ -694,7 +767,7 @@ def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
             argv += ['--stream', str(stream)]
         launches[label], tiled, text = run_cli(cli, kernels, label, d,
                                                argv + list(flags), size,
-                                               on_card)
+                                               on_card, first_card_only)
         got_out = _sha(d / out)
         if got_out != out_sha[v]:
             raise AssertionError('%s output FASTQ differs from the JAX '
@@ -742,9 +815,11 @@ def _free_port():
 def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
                   reads='reads.fastq', out='out_v1.fastq', out_sha=OUT_SHA[1],
                   stdout_sha=STDOUT_SHA[1], load_stats=False):
-    """The input (work/reads) at -v 1 as two torch.distributed ranks on
-    the one card: the merged output and rank 0's transcript must be the
-    JAX package's (by default the 10 kb input's).  With load_stats, under
+    """The input (work/reads) at -v 1 as two torch.distributed ranks,
+    rank r on cuda:(r % cards): sharing the one card, or on two distinct
+    cards where there are two, each rank launching on its card alone.
+    The merged output and rank 0's transcript must be the JAX package's
+    (by default the 10 kb input's).  With load_stats, under
     PORECHOP_TPU_LOAD_STATS: each rank must have built fewer reads than
     the input holds.  Adds the ranks' kernel call shapes to shapes;
     returns the launches of both ranks together."""
@@ -789,13 +864,22 @@ def run_two_ranks(work, size, shapes, stream=None, what='10 kb',
     for s_ in stats:
         for name, seen in s_['shapes'].items():
             shapes[name].update(tuple(x) for x in seen)
+            for card in s_['cards']:
+                shapes['by_device'][(name, card)].update(
+                    tuple(x) for x in seen)
     print('%s: %.2f s wall (two processes, start-up included), %.1f reads/s, '
-          'peak device memory by rank %s MiB, launches %s, routes (jobs, '
-          'padded cells) by rank %s' % (
-              label, wall, size[0] / wall,
+          'cards by rank %s, peak device memory by rank %s MiB, launches '
+          '%s, routes (jobs, padded cells) by rank %s' % (
+              label, wall, size[0] / wall, [s_['cards'] for s_ in stats],
               ['%.1f' % (s_['peak_bytes'] / 2 ** 20) for s_ in stats],
               [s_['launches'] for s_ in stats],
               [s_['routes'] for s_ in stats]), flush=True)
+    want_cards = [['cuda:%d' % (r % torch.cuda.device_count())]
+                  for r in range(2)]
+    if [s_['cards'] for s_ in stats] != want_cards:
+        raise AssertionError('%s: the ranks launched on %s, not on %s'
+                             % (label, [s_['cards'] for s_ in stats],
+                                want_cards))
     for r, s_ in enumerate(stats):
         idle = [k for k in PATH_KERNELS if s_['launches'][k] == 0]
         if idle:
@@ -826,19 +910,23 @@ def recorded_shapes(kernels):
     """Records the (lanes, L, A) of every call of each forward wrapper made
     inside the block, and the (lanes, L1p, A) of the bits of every
     standalone walk, into {kernel: set of shapes}; counts the calls of
-    each forward wrapper by (kernel, lanes, L, A) into shapes['calls'] and
+    each forward wrapper by (kernel, lanes, L, A) into shapes['calls'],
     the forward_walk launches by (one tile, given a trace-bit tensor) into
-    shapes['bits'] (Counters)."""
+    shapes['bits'] (Counters), and the shapes of each wrapper's calls on
+    each card into shapes['by_device'][(kernel, 'cuda:k')]."""
     shapes = {name: set() for name in ALL_KERNELS}
     shapes['bits'] = collections.Counter()
     shapes['calls'] = collections.Counter()
+    shapes['by_device'] = collections.defaultdict(set)
     saved = {name: getattr(kernels, name) for name in ALL_KERNELS}
     launch = kernels._launch
 
     def recording(name, fn):
         def call(reads, read_lens, adapters, *rest):
-            shapes[name].add((*reads.shape, adapters.shape[1]))
-            shapes['calls'][(name, *reads.shape, adapters.shape[1])] += 1
+            shape = (*reads.shape, adapters.shape[1])
+            shapes[name].add(shape)
+            shapes['calls'][(name, *shape)] += 1
+            shapes['by_device'][(name, str(reads.device))].add(shape)
             return fn(reads, read_lens, adapters, *rest)
         return call
 
@@ -929,6 +1017,46 @@ def check_launched_shapes(kernels, shapes, timings, seed=100):
         timings[name] += got
 
 
+def check_other_cards(kernels, by_device, cards):
+    """On each card of `cards` (indices: every card but cuda:0), each
+    kernel against its plain version at shapes the runs launched it at on
+    that card (by_device, from recorded_shapes): score and stats at their
+    smallest (in cells), and at forward_walk's smallest one-tile and
+    smallest multi-tile shape forward_tiled, the standalone walk and
+    forward_walk (check_trace_bits); exact.  Every one of these launches
+    must land on that card."""
+    for k in cards:
+        card = 'cuda:%d' % k
+        seen = {name: sorted(by_device.get((name, card), ()),
+                             key=lambda x: (x[0] * x[1] * x[2], x))
+                for name in PATH_KERNELS}
+        idle = [name for name, shapes in seen.items() if not shapes]
+        if idle:
+            raise AssertionError('no run launched %s on %s' % (idle, card))
+        tiles = [[x for x in seen['forward_walk']
+                  if (kernels.tiled_l1p(x[1]) == kernels.TILE_T) == one][:1]
+                 for one in (True, False)]
+        bits = [x for pick in tiles for x in pick]
+        what = 'launched on ' + card
+        kernels.reset_launches()
+        with torch.cuda.device(k):
+            check_kernels(kernels, {
+                name: dict(KERNELS[name], shapes=[(what, *seen[name][0])])
+                for name in ('forward_score', 'forward_stats')}, seed=300)
+            check_trace_bits(kernels, [(what, *x) for x in bits], seed=400)
+        where = {dev for (_, dev), n in kernels.DEVICE_LAUNCHES.items() if n}
+        idle = [name for name in ALL_KERNELS
+                if not kernels.DEVICE_LAUNCHES[(name, card)]]
+        if where != {card} or idle:
+            raise AssertionError('the checks on %s launched on %s, and '
+                                 'never launched %s there'
+                                 % (card, sorted(where), idle))
+        print('kernels on %s against their plain versions, max |err| 0 at '
+              'score %s, stats %s, trace bits %s'
+              % (card, seen['forward_score'][0], seen['forward_stats'][0],
+                 bits), flush=True)
+
+
 def one_card_runs(cli, kernels, inputs):
     """On a host with several cards, where a run with no --device splits
     over all of them: entry_runs on cuda:0 alone, the one entry that
@@ -966,10 +1094,12 @@ def hybrid_runs(cli, kernels, work, size):
     if not (routes['native'][0] and routes['device'][0]):
         raise AssertionError('the hybrid run did not take both routes: %s'
                              % routes)
+    # The v1 engine runs on the first card, and so does the replay.
     with environment(PORECHOP_TPU_ENGINE='v1'):
         runs.update(run_main_path(cli, kernels, '10 kb v1', work, size,
                                   OUT_SHA, STDOUT_SHA,
-                                  on_card={'forward_walk'}))
+                                  on_card={'forward_walk'},
+                                  first_card_only=True))
     return runs
 
 
@@ -1001,7 +1131,8 @@ def stretch_runs(cli, kernels, shapes):
     trim_counts = stream.trim_counts
 
     def counting(done):
-        after_chunk.append(torch.cuda.memory_allocated())
+        after_chunk.append(sum(torch.cuda.memory_allocated(k)
+                               for k in _cards()))
         return trim_counts(done)
     stream.trim_counts = counting
     calls = shapes['calls'].copy()
@@ -1164,7 +1295,9 @@ def dry_run(kernels):
     """The dry-run entry points (porechop_tpu_torch/entry.py): the flagship
     step on the card against the same step on the CPU (the plain
     versions), then the multi-device dry run on two entries on cuda:0,
-    which checks itself."""
+    which checks itself, and on a host with n >= 2 cards on the real
+    cards (dryrun_multichip(n) with no device), each card launching every
+    kernel of the path."""
     from porechop_tpu_torch import entry
     t0 = time.perf_counter()
     fn, args = entry.entry()
@@ -1183,6 +1316,23 @@ def dry_run(kernels):
                  kernels.TILED_CALLS)
     print('dry run (entry, dryrun_multichip(2) on cuda:0,cuda:0): %.2f s, '
           'launches %s' % (time.perf_counter() - t0, launches), flush=True)
+    n = torch.cuda.device_count()
+    if n < 2:
+        return
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    entry.dryrun_multichip(n)
+    cards = ['cuda:%d' % k for k in range(n)]
+    table = {k: [kernels.DEVICE_LAUNCHES[(k, c)] for c in cards]
+             for k in PATH_KERNELS}
+    if not all(all(v) for v in table.values()):
+        raise AssertionError('dryrun_multichip(%d) launched %s on %s'
+                             % (n, table, cards))
+    _check_walks('dry run on %d cards' % n, kernels.LAUNCHES,
+                 kernels.DEVICE_LAUNCHES, kernels.TILED_CALLS)
+    print('dry run (dryrun_multichip(%d) on the cards): %.2f s, launches by '
+          'card (%s) %s' % (n, time.perf_counter() - t0, ', '.join(cards),
+                            table), flush=True)
 
 
 def main():
@@ -1226,6 +1376,14 @@ def main():
         runs, ten_kb = on_card_runs(cli, kernels, shapes)
     check_no_bits_on_one_tile(shapes['bits'])
     check_launched_shapes(kernels, shapes, timings)
+    if torch.cuda.device_count() > 1:
+        check_other_cards(kernels, shapes['by_device'], list(_cards())[1:])
+    else:
+        print('multi-card phases: not run (device_count 1): the runs with '
+              'no --device on every card, each card launching every '
+              'kernel; cuda:0,cuda:1 entries; two ranks on two cards; '
+              'dryrun_multichip on the cards; the kernels on a second '
+              'card', flush=True)
     dry_run(kernels)
     # Last, after every kernel's timing: the profiled run's session is not
     # among the ones _cupti_ms times kernels with.

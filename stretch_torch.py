@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The stretch run of the PyTorch/CUDA port (porechop_tpu_torch) on one
-NVIDIA GPU, the port's counterpart of tools/stretch_1m.py: a gzipped FASTQ
-of 1,000,000 synthetic 1 kb reads (BASELINE.json configs[4]) trimmed with
---stream in fresh processes, one process and then two torch.distributed
-ranks sharing the card.  Run from the repository root:
+"""The stretch run of the PyTorch/CUDA port (porechop_tpu_torch) on an
+NVIDIA GPU host, the port's counterpart of tools/stretch_1m.py: a gzipped
+FASTQ of 1,000,000 synthetic 1 kb reads (BASELINE.json configs[4]) trimmed
+with --stream in fresh processes, one process (over every card) and then
+two torch.distributed ranks (rank r on cuda:(r % cards): sharing a lone
+card, else on two).  Run from the repository root:
 
     python3 stretch_torch.py                    # 1M reads, one process
     python3 stretch_torch.py --multihost        # and two ranks
@@ -23,7 +24,8 @@ prints the card's name and power limit, then one JSON line per run: wall
 run_s_with_setup, with them as earlier records counted it), each rank's
 wall split into interpreter start-up, `import torch`, importing the
 port, CUDA context, library load, run and exit, peak RSS, peak
-device MiB and kernel launches per rank, and the output's SHA-256 against
+device MiB, kernel launches and the cards launched on per rank, and the
+output's SHA-256 against
 the JAX package's digest recorded for those parameters (at -v 1 the
 transcript's too).  A mismatch, a failed run or a wrong input exits
 non-zero.  --root DIR runs the porechop_tpu_torch of another checkout
@@ -169,8 +171,8 @@ if profile:
 marks['start'] = time.time()
 t0 = time.perf_counter()
 cli.main(argv)
-if torch.cuda.is_initialized():
-    torch.cuda.synchronize()
+for d in cards:
+    torch.cuda.synchronize(d)
 run_s = time.perf_counter() - t0
 marks['end'] = time.time()
 busy_s = None
@@ -188,6 +190,8 @@ print('STRETCH ' + json.dumps({
     'ru_maxrss_mib': resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 1024,
     'device_mib': peak / 2 ** 20, 'launches': dict(kernels.LAUNCHES),
+    'cards': sorted({d for (_, d), n in kernels.DEVICE_LAUNCHES.items()
+                     if n}),
     'busy_s': busy_s, 'marks': marks}), file=sys.stderr)
 '''
 # The parts of a fresh process's wall, from the parent's start and exit
@@ -360,6 +364,7 @@ def run(tree, input_path, reads, ranks, device=None, profile=False,
         'launches': {k: sum(s['launches'].get(k, 0) for s in stats)
                      for k in KERNEL_NAMES},
         'launches_by_rank': [s['launches'] for s in stats],
+        'cards_by_rank': [s['cards'] for s in stats],
         'output_bytes': out_bytes, 'output_sha256': out_sha,
         'transcript_sha256': text_sha,
         'jax_output_sha256': want[0] if want else None,

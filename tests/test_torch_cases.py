@@ -60,12 +60,14 @@ def align_jobs(seed=4):
     return windows, adapters, pairs, groups, 3 * len(adapters)
 
 
-def run_mode(mode, jobs, device):
+def run_mode(mode, jobs, device, planner=None):
     """One AlignJobs mode ('run', 'run_stats', 'run_stats_prefilter',
     'run_group_max', 'run_group_score_max') on align_jobs' jobs; a dict
-    of host arrays (the group score max as {'': array})."""
+    of host arrays (the group score max as {'': array}).  planner: another
+    AlignJobs class (the JAX package's), which takes no device."""
     windows, adapters, pairs, groups, n_groups = jobs
-    j = dispatch.AlignJobs(windows, adapters, pairs, device=device)
+    j = (dispatch.AlignJobs(windows, adapters, pairs, device=device)
+         if planner is None else planner(windows, adapters, pairs))
     if mode == 'run_stats_prefilter':
         return j.run_stats(prefilter=90.0)
     if mode.startswith('run_group'):

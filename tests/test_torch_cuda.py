@@ -3,8 +3,11 @@ PyTorch version on the card (exact: every output is an integer, and the
 bits are compared in the region the walker reads), the trace-bit call
 with its walk (forward_walk) and the standalone walk enqueued with no host
 synchronisation, the CLI on the card against the CPU run, and
-bench_torch.py at a small size.  They
-skip without a CUDA device; on a machine with one run them with
+bench_torch.py at a small size; on a host with two or more cards, lanes
+split over two cards, dryrun_multichip on the cards, every kernel on
+cuda:1 and two CLI ranks on two cards.  They skip without a CUDA device
+(the multi-card ones with fewer than two); on a machine with one run them
+with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -48,6 +51,15 @@ def card():
                                         (9, 33, 300, 100), (0, 128, 120, 24)])
 def test_kernels_match_plain(card, seed, B, L, A):
     batch = gap_run_batch() if seed == 0 else dp_batch(seed, B, L, A)
+    _kernels_match_plain(card, batch)
+    assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
+                                'forward_tiled': 1, 'forward_walk': 0,
+                                'walk': 0}
+
+
+def _kernels_match_plain(card, batch):
+    """Score, stats and the trace-bit forward on `card` against their plain
+    versions on the CPU, after kernels.reset_launches()."""
     cpu = to_torch(*batch)
     dev = [t.to(card) for t in cpu]
     kernels.reset_launches()
@@ -66,9 +78,7 @@ def test_kernels_match_plain(card, seed, B, L, A):
     for k in range(len(rl)):
         rows, cols = int(al[k]), int(rl[k]) + 1
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
-    assert kernels.LAUNCHES == {'forward_score': 1, 'forward_stats': 1,
-                                'forward_tiled': 1, 'forward_walk': 0,
-                                'walk': 0}
+    return got, want
 
 
 @pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
@@ -436,14 +446,114 @@ def test_two_entries_on_one_card_equal_one_entry(card):
     assert {d for _, d in by_device} == {'cuda:0'}
 
 
-def test_two_cards_equal_one_card(card):
+def test_two_cards_equal_one_card(cards):
     """Each card launches its share: the same launches on both."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip('needs two NVIDIA GPUs')
     by_device = _entries_equal_one_entry('cuda:0,cuda:1')
     assert {d for _, d in by_device} == {'cuda:0', 'cuda:1'}
     for k in kernels.LAUNCHES:
         assert by_device[(k, 'cuda:0')] == by_device[(k, 'cuda:1')], k
+
+
+@pytest.fixture
+def cards(card):
+    """The number of cards, when there are two or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs')
+    return torch.cuda.device_count()
+
+
+def test_dryrun_multichip_on_the_cards(cards):
+    """dryrun_multichip with no device runs on the host's cards (it checks
+    its own results), each card launching every kernel of the path."""
+    from porechop_tpu_torch import entry
+    kernels.reset_launches()
+    entry.dryrun_multichip(cards)
+    for k in ('forward_score', 'forward_stats', 'forward_walk'):
+        for c in range(cards):
+            assert kernels.DEVICE_LAUNCHES[(k, 'cuda:%d' % c)] > 0, (k, c)
+
+
+@pytest.mark.parametrize('seed,B,L,A', [(6, 128, 150, 24), (7, 32, 700, 32),
+                                        (8, 64, 150, 48), (9, 33, 300, 100)])
+def test_kernels_on_a_second_card_match_plain(cards, seed, B, L, A):
+    """Every kernel launched on cuda:1, and only there, against its plain
+    version: score, stats, the trace-bit forward, the standalone walk on
+    its bits and the forward with its walk (one tile at L = 150)."""
+    card = torch.device('cuda', 1)
+    batch = dp_batch(seed, B, L, A)
+    got, want = _kernels_match_plain(card, batch)
+    walked = kernels.walk(*got[:1], *got[2:6])
+    assert torch.equal(walked.cpu(), kernels.walk_plain(*want[:1],
+                                                        *want[2:6]))
+    cpu = to_torch(*batch)
+    for g, w in zip(kernels.forward_walk(*(t.to(card) for t in cpu),
+                                         *SCHEME),
+                    kernels.forward_walk_plain(*cpu, *SCHEME)):
+        assert torch.equal(g.cpu(), w)
+    assert {d for (_, d), n in kernels.DEVICE_LAUNCHES.items() if n} \
+        == {'cuda:1'}
+    assert all(kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+# A rank of the CLI: the card multihost.rank_device() gave it and the cards
+# it launched on, as JSON on stderr.
+RANK_CODE = """\
+import json, sys
+from porechop_tpu_torch import cli
+from porechop_tpu_torch.ops import kernels
+from porechop_tpu_torch.parallel import multihost
+given = []
+rank_device = multihost.rank_device
+def recording():
+    given.append(str(rank_device()))
+    return rank_device()
+multihost.rank_device = recording
+cli.main(sys.argv[1:])
+print(json.dumps({'rank_device': given, 'cards': sorted(
+    {d for (_, d), n in kernels.DEVICE_LAUNCHES.items() if n})}),
+      file=sys.stderr)
+"""
+
+
+def test_two_ranks_run_on_two_cards(cards, tmp_path):
+    """Two gloo ranks of the CLI with no --device: rank r takes cuda:r
+    (multihost.rank_device) and launches there alone, and the merged
+    output and rank 0's transcript are those of one process on cuda:0."""
+    import socket
+    write_fastq(str(tmp_path / 'reads.fastq'),
+                synth_reads(24, 2000, seed=5, chimera_rate=0.3))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = ['-i', 'reads.fastq', '-o', 'ranks.fastq', '-v', '1']
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', RANK_CODE] + args, cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=root,
+                 PORECHOP_TPU_COORDINATOR='127.0.0.1:%d' % port,
+                 PORECHOP_TPU_NUM_PROCS='2', PORECHOP_TPU_PROC_ID=str(r)))
+        for r in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err.decode()[-3000:]
+    ranks = [json.loads(err.decode().splitlines()[-1]) for _, err in outs]
+    assert ranks == [{'rank_device': ['cuda:%d' % r], 'cards': ['cuda:%d' % r]}
+                     for r in range(2)]
+    old = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(['-i', 'reads.fastq', '-o', 'one.fastq', '-v', '1'],
+                     device='cuda:0')
+    finally:
+        os.chdir(old)
+    assert (tmp_path / 'ranks.fastq').read_bytes() \
+        == (tmp_path / 'one.fastq').read_bytes()
+    assert outs[0][0].decode().replace('ranks.fastq', '') \
+        == buf.getvalue().replace('one.fastq', '')
+    assert outs[1][0] == b''
 
 
 @pytest.mark.parametrize('scheme', [(3, -6, -2, -5), (2, -3, -3, -3)])

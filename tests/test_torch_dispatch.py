@@ -11,10 +11,17 @@ from porechop_tpu.ops import dispatch as jax_dispatch
 from porechop_tpu.ops import middle as jax_middle
 from porechop_tpu.ops import spec as jax_spec
 from porechop_tpu_torch.ops import dispatch, kernels, middle
+from porechop_tpu_torch.parallel import mesh
 
-from .test_torch_cases import FIELDS, align_jobs, one_torch_thread
+from .test_torch_cases import (FIELDS, MODES, align_jobs, one_torch_thread,
+                               run_mode)
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
+# Cell budgets small enough that the planner's buckets cut into several
+# launches: 32 lanes of rung 150 at adapter rung 24 a trace-bit launch, 32
+# of rung 150 at adapter rung 64 a bitless one.
+SMALL = {'_CELL_BUDGET': 32 * 151 * 24, '_GM_CELL_BUDGET': 32 * 151 * 64}
 
 
 def _both(windows, adapters, pairs):
@@ -139,6 +146,63 @@ def test_unported_shapes_and_schemes_raise(scoring, monkeypatch):
             g, w = {'': g}, {'': w}
         for f in g:
             assert np.array_equal(g[f], w[f]), (mode, f)
+
+
+def _count_launches(monkeypatch):
+    """Counters of the launches each package's planner enqueues: the
+    port's mesh.launch_shards calls and the JAX package's chunk launches
+    (with its size route off, every chunk is one)."""
+    counts = {'port': 0, 'jax': 0}
+
+    def spy(owner, name, key):
+        fn = getattr(owner, name)
+
+        def call(*args, **kw):
+            counts[key] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(owner, name, call)
+    spy(mesh, 'launch_shards', 'port')
+    spy(jax_dispatch.AlignJobs, '_launch_chunk_gather', 'jax')
+    spy(jax_dispatch.AlignJobs, '_run_chunk', 'jax')
+    # As the port's defaults: no size route, no work share with the
+    # native engine and no adapter-rung merge.
+    monkeypatch.setenv('PORECHOP_TPU_NO_NATIVE', '1')
+    monkeypatch.setattr(jax_dispatch.AlignJobs, '_MERGE_CELLS_PER_LAUNCH', 0)
+    return counts
+
+
+def _jobs(seed):
+    """align_jobs' windows of rungs 150 and 1,024 (and the empty one), each
+    twice, against its adapters of rungs 24 and 32: four buckets of 18 to
+    72 jobs, a few launch shapes for the JAX package to compile."""
+    windows, adapters, _, _, _ = align_jobs(seed)
+    windows = [w for w in windows if len(w) <= 1024] * 2
+    adapters = [a for a in adapters if len(a) <= 32]
+    pairs = np.array([(w, a) for w in range(len(windows))
+                      for a in range(len(adapters))], np.int64)
+    groups = (pairs[:, 0] % 3) * len(adapters) + pairs[:, 1]
+    return windows, adapters, pairs, groups, 3 * len(adapters)
+
+
+@pytest.mark.parametrize('mode', MODES)
+def test_small_budgets_launch_as_jax_chunks(monkeypatch, mode):
+    """Under small cell budgets each mode's planner makes as many launches
+    as the JAX package's planner makes chunks under the same budgets, more
+    than under the default budgets, and the same results."""
+    counts = _count_launches(monkeypatch)
+    jobs = _jobs(7)
+    default = run_mode(mode, jobs, 'cpu')
+    n_default = counts['port']
+    for name, value in SMALL.items():
+        for mod in (dispatch, jax_dispatch):
+            monkeypatch.setattr(mod, name, value)
+    counts.update(port=0, jax=0)
+    got = run_mode(mode, jobs, 'cpu')
+    want = run_mode(mode, jobs, None, jax_dispatch.AlignJobs)
+    assert counts['port'] == counts['jax'] > n_default, (counts, n_default)
+    for f, v in want.items():
+        assert np.array_equal(got[f], v, equal_nan=True), f
+        assert np.array_equal(got[f], default[f], equal_nan=True), f
 
 
 def test_replay_rounds_match_jax():

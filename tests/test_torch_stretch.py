@@ -233,7 +233,7 @@ def _fake_child(body, walls):
         (cwd / 'out.fastq').write_bytes(body)
         stats = [{'run_s': 1.5, 'rss_mib': 900.0 + r, 'rss_from': 'VmHWM',
                   'ru_maxrss_mib': 950.0, 'detection_rss_mib': 800.0,
-                  'device_mib': 250.0,
+                  'device_mib': 250.0, 'cards': ['cuda:%d' % r],
                   'launches': {'forward_score': 3, 'forward_stats': 2,
                                'forward_walk': 7, 'forward_tiled': 0,
                                'walk': 0},
@@ -279,7 +279,8 @@ RECORD_KEYS = {
     'peak_rss_mib_after_detection_by_rank',
     'peak_device_mib',
     'peak_device_mib_by_rank',
-    'launches', 'launches_by_rank', 'output_bytes', 'output_sha256',
+    'launches', 'launches_by_rank', 'cards_by_rank', 'output_bytes',
+    'output_sha256',
     'transcript_sha256', 'jax_output_sha256', 'jax_equal', 'pair'}
 
 
@@ -295,6 +296,7 @@ def test_stretch_records_keep_their_fields(fake_stretch):
         assert r['reads_per_s'] == 200_000 / 10.0
         assert r['launches']['forward_walk'] == 7 * r['ranks']
     assert records[1]['peak_rss_mib_by_rank'] == [900.0, 901.0]
+    assert records[1]['cards_by_rank'] == [['cuda:0'], ['cuda:1']]
     assert records[0]['run_s_with_setup'] == 1.5 + 0.25 + 0.125
     assert records[2]['device_idle_share'] == pytest.approx(1 - 0.1 / 1.5)
     assert calls[0][2] == ['-i', 'reads.fastq.gz', '-o', 'out.fastq', '-v',
