@@ -26,8 +26,10 @@ of the JAX package (by SHA-256) and launch every kernel of the path
 (score, stats and forward_walk), every trace-bit call walking inside its
 own launch on its own device (no forward_tiled and no standalone walk
 launches, in every run below too; a one-tile call allocates no trace
-bits), and the long-read runs must cut at least one trace-bit launch into
-column chunks (kernels.split_plan).  Last, the 10 kb input runs at -v 1 as two
+bits), the long-read runs must cut at least one trace-bit launch into
+column chunks (kernels.split_plan), and every barcoded run must cut each
+of its trace-bit calls at the middle's rung and adapter rung 96 (the
+AMAX 96 instantiation) so.  Last, the 10 kb input runs at -v 1 as two
 torch.distributed ranks sharing the card (two `python -m
 porechop_tpu_torch` processes, in memory and streamed), whose merged
 output and rank 0's transcript must be the single-process run's.  Then
@@ -237,6 +239,12 @@ INT32_OPS = 64 * 132 * 1.98e9
 OPS_PER_CELL = {'forward_score': 10, 'forward_stats': 16,
                 'forward_tiled': 18, 'forward_walk': 18}
 
+# A launch at the barcoded middle's adapter rung (AMAX 96) whose lanes mix
+# adapters of MIXED_ALENS bases (lane k the (k % 3)-th); every other shape's
+# lanes draw theirs from 75-100% of A.
+MIXED = 'barcoded middle, adapters of 65, 80 and 96 bp'
+MIXED_ALENS = (65, 80, 96)
+
 KERNELS = {
     'forward_score': dict(
         source='porechop_tpu_torch/csrc/dp_score.cu',
@@ -248,7 +256,9 @@ KERNELS = {
                 ('middle round 0, real width', 16384, 10240, 32),
                 ('detection prefilter, as the runs launch it', 1048576,
                  150, 24),
-                ('barcoded middle round 0', 4096, 10240, 96)]),
+                ('barcoded middle round 0', 4096, 10240, 96),
+                (MIXED, 512, 10240, 96),
+                ('adapter rung 128, coverage only', 512, 10240, 128)]),
     'forward_stats': dict(
         source='porechop_tpu_torch/csrc/dp_stats.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:721',
@@ -257,7 +267,9 @@ KERNELS = {
                 ('detection group max', 16384, 150, 48),
                 ('middle survivors', 1024, 10240, 32),
                 ('middle survivors, adapter rung 48', 1024, 10240, 64),
-                ('barcoded middle survivors', 512, 10240, 96)]),
+                ('barcoded middle survivors', 512, 10240, 96),
+                (MIXED, 512, 10240, 96),
+                ('adapter rung 128, coverage only', 512, 10240, 128)]),
     'forward_tiled': dict(
         source='porechop_tpu_torch/csrc/dp_tiled.cu',
         replaces='porechop_tpu/ops/kernel_pallas.py:376',
@@ -269,14 +281,16 @@ KERNELS = {
                 ('middle coords, adapter rung 48', 1024, 10240, 64),
                 ('middle round 0, adapter rung 48', 1024, 24576, 64),
                 ('middle replay, rung 262,144', 128, 262144, 32),
-                # Split launches that the long-read and 10 kb runs make
-                # (kernels.TILED_CALLS), and AMAX 128 for coverage only.
+                # Split launches that the long-read, 10 kb and barcoded
+                # runs make (kernels.TILED_CALLS), and AMAX 128 for
+                # coverage only.
                 ('long-read, 32 lanes at rung 262,144', 32, 262144, 32),
                 ('long-read, 32 lanes at rung 131,072', 32, 131072, 32),
                 ('long-read, 128 lanes at rung 131,072', 128, 131072, 32),
                 ('10 kb, 512 lanes, adapter rung 48', 512, 10240, 48),
                 ('barcoded middle, 512 lanes, adapter rung 96', 512, 10240,
                  96),
+                (MIXED, 512, 10240, 96),
                 ('adapter rung 128, coverage only', 32, 131072, 128)]),
 }
 # The trimming path's trace-bit call: the forward with each lane's walk in
@@ -310,14 +324,17 @@ ALL_KERNELS = [*KERNELS, 'walk']
 CUPTI_BELOW_MS = 0.1
 
 
-def _inputs(B, L, A, seed):
+def _inputs(B, L, A, seed, what=None):
     """Main-path-like lanes: reads 90-100% of the rung, adapters 75-100%
-    of theirs, one lane in ten carrying its adapter."""
+    of theirs (for the shape `what` MIXED, MIXED_ALENS in turn), one lane
+    in ten carrying its adapter."""
     rng = np.random.default_rng(seed)
     reads = rng.integers(0, 4, (B, L)).astype(np.int8)
     rl = rng.integers((9 * L) // 10, L + 1, B).astype(np.int32)
     adps = rng.integers(0, 4, (B, A)).astype(np.int8)
     al = rng.integers((3 * A) // 4, A + 1, B).astype(np.int32)
+    if what == MIXED:
+        al = np.resize(np.array(MIXED_ALENS, np.int32), B)
     for k in range(0, B, 10):
         reads[k, 5:5 + al[k]] = adps[k, :al[k]]
     return [torch.from_numpy(x).cuda() for x in (reads, rl, adps, al)]
@@ -453,7 +470,7 @@ def check_kernels(kernels, specs=KERNELS, seed=0):
         plain = getattr(kernels, name + '_plain')
         rows = []
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
-            x = _inputs(B, L, A, seed=seed + 10 * n + m)
+            x = _inputs(B, L, A, seed=seed + 10 * n + m, what=what)
             got = kern(*x, *SCHEME)
             want, plain_ms = _once_ms(lambda: plain(*x, *SCHEME))
             torch.cuda.synchronize()
@@ -497,7 +514,7 @@ def check_trace_bits(kernels, shapes, seed=200, walk_only=False):
     {kernel: rows}."""
     rows = {'forward_tiled': [], 'walk': [], 'forward_walk': []}
     for m, (what, B, L, A) in enumerate(shapes):
-        x = _inputs(B, L, A, seed=seed + m)
+        x = _inputs(B, L, A, seed=seed + m, what=what)
         (bits_p, best_p, ci_p, cj_p, vf_p, hf_p), fwd_ms = _once_ms(
             lambda: kernels.forward_tiled_plain(*x, *SCHEME))
         walk_p, walk_ms = _once_ms(
@@ -782,7 +799,9 @@ def run_barcoded(cli, kernels, work, size, stream=None, flags=(),
                  verbosities=(0, 1)):
     """The barcoded input binned with -b at -v 0 and -v 1, in memory or
     with --stream, with flags added; every run's bins against the JAX
-    package's -v 1 bins."""
+    package's -v 1 bins, and every run's trace-bit calls at the middle's
+    rung (10,240) and adapter rung 96 (AMAX 96) cut into column chunks
+    (there must be some)."""
     mode = '' if stream is None else ' --stream %d' % stream
     mode += ''.join(' ' + f for f in flags)
     launches = {}
@@ -794,8 +813,9 @@ def run_barcoded(cli, kernels, work, size, stream=None, flags=(),
                 '4'] + list(flags)
         if stream is not None:
             argv += ['--stream', str(stream)]
-        launches[label], _, text = run_cli(cli, kernels, label, d, argv,
-                                           size)
+        launches[label], tiled, text = run_cli(cli, kernels, label, d,
+                                               argv, size)
+        check_rung96_split(label, tiled)
         got = {f: _sha(d / 'bins' / f) for f in sorted(os.listdir(d /
                                                                   'bins'))}
         if got != BARCODED_BIN_SHA:
@@ -804,6 +824,18 @@ def run_barcoded(cli, kernels, work, size, stream=None, flags=(),
                                             if BARCODED_BIN_SHA.get(f) != h}))
         _check_text(label, d, text, BARCODED_STDOUT_SHA[v])
     return launches
+
+
+def check_rung96_split(label, tiled):
+    """The barcoded middle's trace-bit calls (rung 10,240, adapter rung 96:
+    AMAX 96) among a run's calls by (lanes, L, A, chunks) (`tiled`, the
+    sorted items of kernels.TILED_CALLS): there are some, and each cut its
+    lanes into column chunks."""
+    rung96 = [k for k, _ in tiled if k[1:3] == (10240, 96)]
+    if not rung96 or any(k[3] < 2 for k in rung96):
+        raise AssertionError('%s: trace-bit calls at rung 10,240 and adapter '
+                             'rung 96 by (lanes, L, A, chunks): %s, not all '
+                             'split' % (label, rung96))
 
 
 def _free_port():
@@ -1362,7 +1394,7 @@ def main():
                 print('  %s: %s' % (name, line.strip()), flush=True)
 
     print('trace-bit kernel, warps the card holds at once by AMAX: %s'
-          % {a: kernels.card_warps(a) for a in (32, 64, 128)}, flush=True)
+          % {a: kernels.card_warps(a) for a in (32, 64, 96, 128)}, flush=True)
     from porechop_tpu_torch import native
     t0 = time.perf_counter()
     native.library()

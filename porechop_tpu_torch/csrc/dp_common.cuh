@@ -46,8 +46,16 @@
 //                                          time with 16-byte stores
 // SCORE and STATS need almost no shared memory, so 4-warp blocks let an SM
 // hold all 64 of its warps (a one-warp block caps it at 32 blocks); BITS's
-// trace-byte buffer (8.4-33 KB per warp) bounds its warps per SM first
-// (dp_tiled.cu pdp_tiled_warps asks the runtime how many).
+// trace-byte buffer (8.4, 16.6, 24.8 and 33 KB per warp at AMAX 32, 64, 96
+// and 128) bounds its warps per SM first (dp_tiled.cu pdp_tiled_warps asks
+// the runtime how many).
+//
+// The planner pads adapters to the JAX package's rungs (ops/dispatch.py
+// _A_LADDER: 16, 24, 32, 48, 64, 96, 128).  Rungs up to 32 run on AMAX 32,
+// 48 and 64 on AMAX 64, 96 (the barcoded runs' rung) on AMAX 96, computing
+// its 96 rows as the JAX kernels do instead of 128, and 128 on AMAX 128.
+// Rungs 16, 24 and 48 still carry padding rows (48 would need R = 1.5).
+// Nothing in the body needs R or AMAX to be a power of two.
 //
 // BITS may also cut a lane into column chunks, one warp each, every chunk
 // but the first starting with a warm-up sweep whose length is proven to
@@ -517,13 +525,14 @@ int launch_wave(const ArgsOf<MODE>& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Launches the instantiation whose rows cover A and returns 0 or an error
-// code (cudaGetLastError() after the launch).
+// Launches the narrowest instantiation whose rows cover A and returns 0 or
+// an error code (cudaGetLastError() after the launch).
 template <int MODE>
 int launch(const ArgsOf<MODE>& p, cudaStream_t stream) {
   if (p.B <= 0) return 0;
   if (p.A <= 32) return launch_wave<MODE, 32>(p, stream);
   if (p.A <= 64) return launch_wave<MODE, 64>(p, stream);
+  if (p.A <= 96) return launch_wave<MODE, 96>(p, stream);
   if (p.A <= 128) return launch_wave<MODE, 128>(p, stream);
   return ERR_ADAPTER_TOO_LONG;
 }

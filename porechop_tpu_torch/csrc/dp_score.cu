@@ -10,6 +10,10 @@
 // of int32 operations, time_kernels.py on an H100 SXM at 700 W), most of a
 // step's instructions being the shuffles, range tests and boundary selects
 // around R cells; the dependent chain of a step at 1,024 lanes (0.97 ms).
+// The barcoded runs' round 0 (4,096 lanes x 10,240 x adapter rung 96) runs
+// on the AMAX 96 instantiation, three rows a thread: 3.97 ms against a
+// 2.0 ms bound, where AMAX 128, a quarter of its rows padding, took 4.74
+// ms (time_kernels.py, both in one call, H100 SXM at 700 W).
 #include "dp_common.cuh"
 
 extern "C" int pdp_forward_score(const void* reads, const void* read_lens,

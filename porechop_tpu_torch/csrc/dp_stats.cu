@@ -11,7 +11,10 @@
 // the tie flags and payload selects of dp_cell, the scouts): 1.3 ms at the
 // middle survivors' 1,024 x 10,240 x 32 against a 0.27 ms bound of int32
 // operations, 0.22 ms at detection's 16,384 x 150 x 24 against 0.05 ms
-// (time_kernels.py on an H100 SXM at 700 W).
+// (time_kernels.py on an H100 SXM at 700 W).  Few lanes are bound by the
+// dependent chain instead: the barcoded survivors' 512 x 10,240 x 96
+// take 2.64 ms on the AMAX 96 instantiation (three rows a thread) against
+// a 0.40 ms bound, where AMAX 128 took 3.21 ms (both in one call).
 #include "dp_common.cuh"
 
 extern "C" int pdp_forward_stats(const void* reads, const void* read_lens,

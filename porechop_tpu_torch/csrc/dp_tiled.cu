@@ -67,7 +67,11 @@
 // launch reaches the same rate and pays its warm-up, at most 1 / 8 of a
 // chunk, on top: 128 lanes at rung 262,144 take 3.14 ms against a 0.95 ms
 // bound, where one warp per lane took 32.1 ms (time_kernels.py, parent and
-// split in one call, H100 SXM at 700 W).
+// split in one call, H100 SXM at 700 W).  The barcoded middle's 512 lanes
+// x 10,240 x adapter rung 96 run on AMAX 96 (24.8 KB a warp: 1,188 warps),
+// split into two chunks after a 768-column warm-up: 2.10 ms with the walk
+// against a 0.45 ms bound.  On AMAX 128 (792 warps, too few for the plan
+// to split 512 lanes) they take 3.91 ms (both in one call).
 #include "dp_common.cuh"
 
 namespace {
@@ -172,6 +176,7 @@ int forward_bits(const void* reads, const void* read_lens,
 extern "C" int pdp_tiled_warps(int A, int* warps) {
   if (A <= 32) return resident_warps<32>(warps);
   if (A <= 64) return resident_warps<64>(warps);
+  if (A <= 96) return resident_warps<96>(warps);
   if (A <= 128) return resident_warps<128>(warps);
   return pdp::ERR_ADAPTER_TOO_LONG;
 }

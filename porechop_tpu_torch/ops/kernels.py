@@ -13,9 +13,15 @@ dp_wave_kernel<MODE, AMAX> in csrc/dp_common.cuh (design notes there):
                                                    in TILE_T-column tiles
 
 One warp per lane (one read window against one adapter) on the
-anti-diagonal: thread t owns adapter rows [R t, R t + R), R = AMAX / 32
-(AMAX 32, 64 or 128 by the adapter width), and the row above arrives by a
-warp shuffle.  Every kernel takes any L: a lane stops at its own read
+anti-diagonal: thread t owns adapter rows [R t, R t + R), R = AMAX / 32,
+and the row above arrives by a warp shuffle.  AMAX is 32, 64, 96 or 128,
+the narrowest that covers the adapter width: the barcoded runs' adapter
+rung 96 computes its 96 rows, not 128 (on an H100 SXM at 700 W,
+time_kernels.py: score at 4,096 x 10,240 x 96 3.97 ms against 4.74 on
+AMAX 128, stats at 512 lanes 2.64 against 3.21, and the trace-bit call
+with its walk at 512 lanes 2.10 against 3.91, since on AMAX 96 the card
+holds enough warps for its plan to split them).  On a card, wider
+adapters raise.  Every kernel takes any L: a lane stops at its own read
 length.  Score and stats run four lanes to a block in SCAN_T-column tiles,
 the trace-bit forward one lane to a block in TILE_T-column tiles whose
 trace bytes are staged in shared memory; a launch of few long lanes cuts

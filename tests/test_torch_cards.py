@@ -1,6 +1,6 @@
 """What the port's multi-card checks and measurements compute, on the CPU:
-chip_smoke.py's per-card launch check and its count of the replay's
-launches, profile_torch.py's busy times and overlap from a profile's
+chip_smoke.py's per-card launch check, its count of the replay's launches
+and its check that the barcoded run's rung-96 trace-bit calls split, profile_torch.py's busy times and overlap from a profile's
 device events, and the card each rank of a multi-process run takes
 (multihost.rank_device).  Exact: counts and sums of integers."""
 
@@ -60,6 +60,25 @@ def test_check_cards_passes_one_card():
     launches, by_device = _launches(walk_first=9)
     chip_smoke.check_cards('run', ['cuda:0'], launches, by_device,
                            collections.Counter())
+
+
+@pytest.mark.parametrize('tiled,ok', [
+    ([((256, 10240, 24, 6), 1), ((512, 10240, 96, 2), 53),
+      ((65536, 150, 96, 1), 1)], True),
+    ([((256, 10240, 96, 2), 106), ((128, 10240, 96, 3), 1)], True),
+    ([((256, 10240, 32, 6), 1), ((512, 10240, 96, 1), 53)], False),
+    ([((512, 10240, 96, 1), 1), ((256, 10240, 96, 2), 4)], False),
+    ([((256, 10240, 24, 6), 1), ((65536, 150, 96, 1), 1)], False)],
+    ids=['in memory', 'streamed', 'unsplit', 'one unsplit', 'none'])
+def test_check_rung96_split(tiled, ok):
+    """chip_smoke.py's check of a barcoded run's trace-bit calls at rung
+    10,240 and adapter rung 96: there are some, and every one is split;
+    the one-tile end windows at adapter rung 96 do not count."""
+    if ok:
+        chip_smoke.check_rung96_split('run', tiled)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_rung96_split('run', tiled)
 
 
 def test_replay_launches_counts_only_inside_rounds(monkeypatch):

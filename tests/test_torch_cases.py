@@ -11,9 +11,15 @@ from porechop_tpu_torch.ops import dispatch, kernels
 
 SCHEME = (3, -6, -5, -2)
 # Warps of the trace-bit kernel an H100 SXM holds at once, by AMAX: 132 SMs
-# x 24, 13 and 6 one-warp blocks, bounded by the trace-byte buffer
+# x 24, 13, 9 and 6 one-warp blocks, bounded by the trace-byte buffer
 # (kernels.card_warps on the card; chip_smoke.py prints it).
-H100_WARPS = {32: 132 * 24, 64: 132 * 13, 128: 132 * 6}
+H100_WARPS = {32: 132 * 24, 64: 132 * 13, 96: 132 * 9, 128: 132 * 6}
+
+
+def amax_of(A):
+    """The instantiation (AMAX) that serves adapter width A: the
+    narrowest that covers it (csrc/dp_common.cuh launch)."""
+    return min(a for a in H100_WARPS if A <= a)
 
 
 @pytest.fixture(scope='module')

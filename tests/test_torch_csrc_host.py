@@ -42,10 +42,10 @@ import torch
 from porechop_tpu.ops import engine_v2 as jax_engine
 from porechop_tpu_torch.ops import engine_v2, kernels
 
-from .test_torch_cases import (H100_WARPS, SCHEME, call_tiled, call_walk,
-                               dp_batch, gap_run_batch, one_torch_thread,
-                               plan_warm, plant, split_batch, tiled_diffs,
-                               to_torch)
+from .test_torch_cases import (H100_WARPS, SCHEME, amax_of, call_tiled,
+                               call_walk, dp_batch, gap_run_batch,
+                               one_torch_thread, plan_warm, plant,
+                               split_batch, tiled_diffs, to_torch)
 
 pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
@@ -280,11 +280,12 @@ LENS = [0, 1, T - 2, T - 1, T, T + 1, 2 * T - 1, 2 * T, 600, 311, 599, 37]
 
 
 @pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
-@pytest.mark.parametrize('A', [5, 24, 32, 33, 48, 64, 100, 128])
+@pytest.mark.parametrize('A', [5, 24, 32, 33, 48, 64, 65, 80, 96, 97, 100,
+                               128])
 def test_csrc_matches_plain(host_kernels, A, scheme):
-    """All three kernels at every register-row count (AMAX 32, 64, 128 and
-    the edges between them), with lanes of read length 0 and adapter length
-    1 and a lane whose adapter fills A."""
+    """All three kernels at every register-row count (AMAX 32, 64, 96, 128
+    and the edges between them), with lanes of read length 0 and adapter
+    length 1 and a lane whose adapter fills A."""
     _assert_match_plain(host_kernels, _edge_batch(A, 600, A, LENS), scheme)
 
 
@@ -301,7 +302,7 @@ def test_csrc_matches_plain_across_scan_tiles(host_kernels, A):
 
 @pytest.mark.parametrize('C', [T, 2 * T])
 @pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
-@pytest.mark.parametrize('A', [24, 48, 100])         # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_split_matches_plain(host_kernels, A, scheme, C):
     """The trace-bit forward with every lane cut into chunks of C columns,
     each after the plan's warm-up, equals the unsplit plain version: the
@@ -332,14 +333,75 @@ def test_split_with_a_short_warm_up_goes_wrong(host_kernels):
                                   plan_warm(A, SCHEME)), want, batch) == []
 
 
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+def _rung96_batch(seed, L, lens):
+    """Lanes of one launch at the barcoded middle's adapter rung (A = 96,
+    AMAX 96: 3 rows a thread) whose adapters are 65, 80 and 96 bases long in
+    turn (22, 27 and 32 threads owning rows), with read lengths `lens`, and
+    a pad lane (read and adapter length 0) last."""
+    A = 96
+    reads, rl, adps, al = dp_batch(seed, len(lens) + 1, L, A)
+    rl[:-1] = lens
+    al[:-1] = [(65, 80, 96)[k % 3] for k in range(len(lens))]
+    rl[-1] = al[-1] = 0
+    return reads, rl, adps, al
+
+
+def test_mixed_adapter_lengths_at_amax_96(host_kernels):
+    """Score, stats, the trace-bit forward and the forward with its walk on
+    one A = 96 launch of lanes with 65-, 80- and 96-base adapters across
+    three tiles (one lane's adapter longer than its read), five carrying
+    their adapter: exact against the plain versions."""
+    reads, rl, adps, al = _rung96_batch(
+        96, 700, [700, 600, 512, 300, 257, 256, 700, 511, 90])
+    for k in range(5):
+        plant(reads, adps, al, k, int(rl[k]) - 5 * k)
+    batch = to_torch(reads, rl, adps, al)
+    _assert_match_plain(host_kernels, batch, SCHEME)
+    walk, best, ci, cj = call_walk(host_kernels['forward_walk'], batch,
+                                   SCHEME)[:4]
+    for name, g, w in zip(('walk', 'best', 'cell_i', 'cell_j'),
+                          (walk, best, ci, cj),
+                          kernels.forward_walk_plain(*batch, *SCHEME)):
+        assert torch.equal(g, w), name
+    assert (walk[:5, 3] == torch.from_numpy(al[:5])).all()
+
+
+def test_split_at_the_barcoded_plan(host_kernels):
+    """The barcoded middle's trace-bit launch (512 x 10,240 x 96) on an
+    H100 plans two chunks of 6,144 columns after a 768-column warm-up
+    (warm_bound 530); the host-built forward with its walk, cut so, equals
+    the unsplit plain versions on lanes of 65-, 80- and 96-base adapters
+    ending around the chunk edge, with copies ending inside the warm-up and
+    straddling the edge and an N run across it."""
+    A, L = 96, 10240
+    assert kernels.warm_bound(A, SCHEME) == 530
+    chunk, warm = kernels.split_plan(512, L, A, SCHEME, H100_WARPS[96])
+    assert (chunk, warm) == (6144, 768) and L // chunk + 1 == 2
+    reads, rl, adps, al = _rung96_batch(
+        97, L, [L, chunk, chunk - 1, 8000, chunk + 1, 9000])
+    plant(reads, adps, al, 0, chunk - 1)
+    plant(reads, adps, al, 1, chunk)
+    plant(reads, adps, al, 3, chunk + 40)
+    plant(reads, adps, al, 5, chunk - warm + 30)
+    reads[4, chunk - 30:chunk + 30] = 4
+    batch = to_torch(reads, rl, adps, al)
+    walk, best, ci, cj, vf, hf, bits = call_walk(
+        host_kernels['forward_walk'], batch, SCHEME, chunk, warm)
+    want = kernels.forward_tiled_plain(*batch, *SCHEME)
+    assert tiled_diffs((bits, best, ci, cj, vf != 0, hf != 0), want,
+                       batch) == []
+    assert torch.equal(walk, kernels.walk_plain(*want[:1], *want[2:]))
+    assert (walk[[0, 1, 3, 5], 3] == torch.from_numpy(al[[0, 1, 3, 5]])).all()
+
+
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_tiled_warps_queries_each_instantiation(host_kernels, A):
     """pdp_tiled_warps asks the runtime's occupancy query for the
     instantiation that serves A, with its shared memory: the stub's
     H100-like card answers what an H100 does."""
     n = ctypes.c_int(0)
     assert host_kernels['forward_tiled'].warps(A, ctypes.byref(n)) == 0
-    assert n.value == H100_WARPS[{24: 32, 48: 64, 100: 128}[A]]
+    assert n.value == H100_WARPS[amax_of(A)]
 
 
 def test_tiled_warps_refuses_past_128_rows(host_kernels):
@@ -422,7 +484,7 @@ WALK_LENS = [0, 1, 2, T - 1, T, T + 1, 2 * T, 1000, 2047, 2048, 2049, 2049]
 
 
 @pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
-@pytest.mark.parametrize('A', [5, 32, 64, 128])
+@pytest.mark.parametrize('A', [5, 32, 64, 80, 96, 128])
 def test_walk_matches_plain_and_jax(host_kernels, A, scheme):
     """The walk on the plain forward's bits of lanes 0-2,049 columns long
     (tile edges, a pad lane of length 0 with adapter length 0, adapter
@@ -457,7 +519,7 @@ def test_walk_on_jax_bits(host_kernels, seed, B, L, A):
 
 
 @pytest.mark.parametrize('C', [T, 2 * T])
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_walk_on_split_bits(host_kernels, A, C):
     """The walk on the bits and elected cells of the host-built trace-bit
     kernel cut into chunks (the fold's cell_i/cell_j), which equal the
@@ -562,7 +624,7 @@ def _route_split(route, A):
 
 
 @pytest.mark.parametrize('route', WALK_ROUTES)
-@pytest.mark.parametrize('A', [16, 32, 48, 96, 128])
+@pytest.mark.parametrize('A', [16, 32, 48, 80, 96, 128])
 def test_forward_walk_matches_plain_and_jax(host_kernels, A, route):
     """The walk inside the trace-bit launch, on every route and at every
     register-row count: the aggregates and cells equal forward_walk_plain

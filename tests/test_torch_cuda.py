@@ -81,7 +81,7 @@ def _kernels_match_plain(card, batch):
     return got, want
 
 
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 @pytest.mark.parametrize('ntiles', [1, 2, 3])
 def test_forward_tiled_matches_plain(card, A, ntiles):
     """The column-tiled kernel against its plain version over 1, 2 and 3
@@ -109,7 +109,7 @@ def test_forward_tiled_matches_plain(card, A, ntiles):
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
 
 
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 @pytest.mark.parametrize('ntiles', [1, 2, 3])
 def test_score_and_stats_match_plain(card, A, ntiles):
     """The wavefront score and stats kernels against their plain versions
@@ -138,7 +138,7 @@ def test_score_and_stats_match_plain(card, A, ntiles):
                                 'walk': 0}
 
 
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_forward_tiled_splits_few_lanes(card, A):
     """Eight lanes of a 40 kb window: the wrapper cuts each into the column
     chunks of split_plan (its shape record says how many), and the result
@@ -168,18 +168,41 @@ def test_forward_tiled_splits_few_lanes(card, A):
 def test_card_warps_from_the_occupancy_query(card):
     """The trace-bit kernel's resident warps, from the runtime: whole SMs'
     worth, fewer for wider instantiations (more trace bytes a warp), and
-    on an H100 the 24, 13 and 6 warps per SM that its 228 KB of shared
+    on an H100 the 24, 13, 9 and 6 warps per SM that its 228 KB of shared
     memory per SM allow."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     got = {amax: kernels.card_warps(amax, card.index) for amax in H100_WARPS}
     assert all(n > 0 and n % sms == 0 for n in got.values()), got
-    assert got[32] >= got[64] >= got[128], got
+    assert got[32] >= got[64] >= got[96] >= got[128], got
     if 'H100' in torch.cuda.get_device_name(card):
         assert got == H100_WARPS
 
 
+def test_barcoded_rung96_launch_splits_on_an_h100(card):
+    """The barcoded middle's trace-bit launch, 512 lanes x 10,240 x 96 with
+    adapters of 65, 80 and 96 bases, through kernels.forward_walk: on an
+    H100 (1,188 resident warps at AMAX 96) the plan cuts each lane into two
+    chunks, and the result equals forward_walk_plain on the same lanes."""
+    B, L, A = 512, 10240, 96
+    reads, rl, adps, al = dp_batch(15, B, L, A)
+    al[:] = np.resize([65, 80, 96], B)
+    for k in range(0, B, 7):
+        plant(reads, adps, al, k, 6144 + 40 * (k % 3) - 60)
+    dev = [t.to(card) for t in to_torch(reads, rl, adps, al)]
+    nch = L // kernels.split_plan(B, L, A, SCHEME,
+                                  kernels.card_warps(A, card.index))[0] + 1
+    if 'H100' in torch.cuda.get_device_name(card):
+        assert nch == 2
+    kernels.reset_launches()
+    got = kernels.forward_walk(*dev, *SCHEME)
+    assert kernels.TILED_CALLS == {(B, L, A, nch): 1}
+    assert kernels.LAUNCHES['forward_walk'] == 1
+    for g, w in zip(got, kernels.forward_walk_plain(*dev, *SCHEME)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize('C', [256, 512])
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_forced_chunks_match_plain(card, A, C):
     """The built kernel with chunks of 256 and 512 columns and the plan's
     warm-up (tests/test_torch_csrc_host.py's lanes, on the card, where
@@ -216,7 +239,7 @@ def _walk_shards(card, A, chunk):
 
 @pytest.mark.parametrize('chunk', [None, 256, 512], ids=['unsplit', '256',
                                                           '512'])
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_walk_matches_plain(card, A, chunk):
     """The walk kernel on two cuda:0 entries' shards against walk_plain on
     the same bits: one launch per shard, exact."""
@@ -277,7 +300,7 @@ def _route_batch(route, A):
 
 
 @pytest.mark.parametrize('route', ['one tile', 'unsplit', 'split'])
-@pytest.mark.parametrize('A', [24, 48, 100])        # AMAX 32, 64 and 128
+@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_forward_walk_matches_plain(card, A, route):
     """The built pdp_forward_walk on each route against forward_walk_plain,
     its best, cells and flags against pdp_forward_tiled's on the same

@@ -13,7 +13,7 @@ import pytest
 
 from porechop_tpu_torch.ops import kernels
 
-from .test_torch_cases import H100_WARPS, SCHEME, dp_batch
+from .test_torch_cases import H100_WARPS, SCHEME, amax_of, dp_batch
 
 NEG = -(1 << 30)
 SCHEMES = [SCHEME, (20, -30, -5, -2), (1, -1, -2, -1), (5, -4, -8, -6)]
@@ -22,7 +22,7 @@ T = kernels.TILE_T
 
 def _warps(A):
     """An H100's warps of the instantiation that serves A."""
-    return H100_WARPS[32 if A <= 32 else 64 if A <= 64 else 128]
+    return H100_WARPS[amax_of(A)]
 
 
 def _gotoh(reads, rl, adps, al, scheme, w0=0):
@@ -102,9 +102,10 @@ def test_short_warm_up_is_wrong():
 
 def test_warm_bound_values():
     """D = A + 2 + ceil(A (s_hi - s_lo) / |gap_ext|): the default scheme's
-    D for A = 32, 64, 128 takes 1, 2 and 3 tiles; gap_ext >= 0 has none."""
-    assert [kernels.warm_bound(A, SCHEME) for A in (32, 64, 128)] == [
-        178, 354, 706]
+    D for A = 32, 64, 96, 128 takes 1, 2, 3 and 3 tiles; gap_ext >= 0 has
+    none."""
+    assert [kernels.warm_bound(A, SCHEME) for A in (32, 64, 96, 128)] == [
+        178, 354, 530, 706]
     assert kernels.warm_bound(32, (3, -6, -5, 0)) is None
     assert kernels.warm_bound(32, (3, -6, -5, 1)) is None
 
@@ -112,7 +113,8 @@ def test_warm_bound_values():
 @pytest.mark.parametrize('B,L,A,scheme', [
     (16384, 150, 32, SCHEME), (2048, 16384, 32, SCHEME),
     (1024, 10240, 64, SCHEME), (1024, 24576, 64, SCHEME), (8, 300, 32, SCHEME),
-    (64, 1000, 128, SCHEME), (8, 262144, 32, (3, -6, -5, 0))])
+    (64, 1000, 128, SCHEME), (8, 262144, 32, (3, -6, -5, 0)),
+    (1024, 10240, 96, SCHEME), (512, 10240, 96, (20, -30, -5, -2))])
 def test_plan_keeps_one_chunk(B, L, A, scheme):
     """One chunk (today's launch) when B fills the card, the window is too
     short to pay the warm-up, or gap_ext >= 0 gives no bound."""
@@ -125,7 +127,8 @@ def test_plan_keeps_one_chunk(B, L, A, scheme):
                                    (256, 131072, 32), (32, 131072, 128),
                                    (1024, 10240, 32), (8, 40000, 48),
                                    (1, 65536, 100), (32, 262144, 32),
-                                   (32, 131072, 32), (128, 131072, 32)])
+                                   (32, 131072, 32), (128, 131072, 32),
+                                   (256, 40000, 80)])
 def test_plan_splits_few_lanes(B, L, A, scheme):
     """Few long lanes split: the warm-up at least D and a TILE_T multiple,
     chunks TILE_T multiples of at least MIN_CHUNK_WARMS warm-ups, and no
@@ -155,3 +158,14 @@ def test_plan_follows_the_card_warps(B, L, chunks):
     for warps, chunk in zip((3168, 1584), chunks):
         assert kernels.split_plan(B, L, 32, SCHEME, warps) == (chunk, 256)
         assert B * (L // chunk + 1) <= warps
+
+
+@pytest.mark.parametrize('amax,plan', [(96, (6144, 768)),
+                                       (128, (kernels.tiled_l1p(10240), 0))])
+def test_plan_of_the_barcoded_rung96_launch(amax, plan):
+    """512 lanes x 10,240 x 96 (the barcoded middle's trace-bit launches):
+    on the 1,188 warps an H100 holds at AMAX 96, two chunks of 6,144
+    columns after a 768-column warm-up (D = 530); on the 792 it holds at
+    AMAX 128, which served rung 96 before, one chunk."""
+    assert kernels.split_plan(512, 10240, 96, SCHEME, H100_WARPS[amax]) \
+        == plan

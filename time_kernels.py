@@ -12,8 +12,9 @@ on both checkouts in turn, for example parent, change, change, parent:
 The shapes and inputs are this checkout's (chip_smoke.KERNELS and
 chip_smoke._inputs, same seeds), whichever package is timed, and so is
 the timing (chip_smoke._time_ms: CUDA events over ~100 ms of launches
-after a warm-up).  It prints the card's name and power limit, then one
-JSON line per kernel and shape.
+after a warm-up).  It prints the card's name and power limit, the
+trace-bit kernel's resident warps by adapter width (kernels.card_warps),
+then one JSON line per kernel and shape.
 
     python3 time_kernels.py --chunks
 
@@ -65,6 +66,10 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     kernels.build()
+    # The trace-bit kernel's resident warps by adapter width, which
+    # split_plan divides among a launch's lanes.
+    print(json.dumps(dict(root=str(root), card_warps={
+        A: kernels.card_warps(A) for A in (32, 64, 96, 128)})), flush=True)
     if args.chunks:
         return sweep_chunks(kernels, root)
     if args.walk:
@@ -72,7 +77,7 @@ def main(argv=None):
     for n, (name, spec_) in enumerate(chip_smoke.KERNELS.items()):
         kern = getattr(kernels, name)
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
-            x = chip_smoke._inputs(B, L, A, seed=10 * n + m)
+            x = chip_smoke._inputs(B, L, A, seed=10 * n + m, what=what)
             ms = chip_smoke._time_ms(lambda: kern(*x, *chip_smoke.SCHEME))
             print(json.dumps(dict(root=str(root), name=name, what=what,
                                   lanes=B, L=L, A=A, ms=ms)), flush=True)
@@ -85,7 +90,7 @@ def time_walks(kernels, root):
     chip_smoke.WALK's shapes, with chip_smoke.check_trace_bits' inputs."""
     scheme = chip_smoke.SCHEME
     for m, (what, B, L, A) in enumerate(chip_smoke.WALK['shapes']):
-        x = chip_smoke._inputs(B, L, A, seed=200 + m)
+        x = chip_smoke._inputs(B, L, A, seed=200 + m, what=what)
 
         def tiled_walk():
             bits, _, ci, cj, vf, hf = kernels.forward_tiled(*x, *scheme)
@@ -117,7 +122,7 @@ def sweep_chunks(kernels, root):
         plan, warm = kernels.split_plan(B, L, A, scheme, warps)
         if warm == 0:
             continue
-        x = chip_smoke._inputs(B, L, A, seed=10 * n + m)
+        x = chip_smoke._inputs(B, L, A, seed=10 * n + m, what=what)
         want = kernels.forward_tiled(*x, *scheme)
         for chunk in sorted({k * warm for k in (4, 6, 8, 12, 16)} | {plan}):
             nch = L // chunk + 1
