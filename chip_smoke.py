@@ -11,9 +11,13 @@ the card at the shapes the trimming path gives it and times it: score,
 stats, the trace-bit forward (forward_tiled, whose bits the K1/K2 checks
 read), the trimming path's trace-bit call (forward_walk: the forward with
 each lane walked inside its launch) and the standalone walk on the
-forward's bits.  A time under ~0.1 ms comes from torch.profiler's CUDA
-kernel durations over the same launches, printed beside the CUDA-event
-time, which a launch that short bounds by the host's enqueue rate.  Then
+forward's bits; score and stats at adapter rungs 16-24 and 48 in both
+lane layouts (one lane a warp, and four or two lanes a warp: the
+instantiations AMAX 24/LW 8 and 48/16), each timed in the layout
+kernels.lane_group picks, which its row names.  A time under ~0.1 ms
+comes from torch.profiler's CUDA kernel durations over the same launches,
+printed beside the CUDA-event time, which a launch that short bounds by
+the host's enqueue rate.  Then
 it runs the trimmer end to end through
 porechop_tpu_torch.cli.main at -v 0 and at -v 1 on three inputs:
 - 8,192 synthetic 10 kb reads, in memory and streamed (--stream 2048);
@@ -26,7 +30,9 @@ of the JAX package (by SHA-256) and launch every kernel of the path
 (score, stats and forward_walk), every trace-bit call walking inside its
 own launch on its own device (no forward_tiled and no standalone walk
 launches, in every run below too; a one-tile call allocates no trace
-bits), the long-read runs must cut at least one trace-bit launch into
+bits), the in-process runs together must launch each narrow
+instantiation of score and stats (kernels.WAVE_CALLS, printed per run),
+the long-read runs must cut at least one trace-bit launch into
 column chunks (kernels.split_plan), and every barcoded run must cut each
 of its trace-bit calls at the middle's rung and adapter rung 96 (the
 AMAX 96 instantiation) so.  Last, the 10 kb input runs at -v 1 as two
@@ -244,6 +250,10 @@ OPS_PER_CELL = {'forward_score': 10, 'forward_stats': 16,
 # lanes draw theirs from 75-100% of A.
 MIXED = 'barcoded middle, adapters of 65, 80 and 96 bp'
 MIXED_ALENS = (65, 80, 96)
+# A launch whose lanes draw read lengths from 0 to L and adapter lengths
+# from 0 to A, so that the lanes sharing a warp end at different columns
+# and rows (adapter rungs 24 and 48 run up to four lanes a warp).
+RAGGED = 'ragged, read lengths 0 to L, adapters 0 to A'
 
 KERNELS = {
     'forward_score': dict(
@@ -256,6 +266,10 @@ KERNELS = {
                 ('middle round 0, real width', 16384, 10240, 32),
                 ('detection prefilter, as the runs launch it', 1048576,
                  150, 24),
+                ('stretch detection prefilter', 262144, 150, 24),
+                ('stretch round 0', 32768, 1024, 48),
+                (RAGGED, 16387, 1100, 24),
+                (RAGGED, 2051, 1100, 48),
                 ('barcoded middle round 0', 4096, 10240, 96),
                 (MIXED, 512, 10240, 96),
                 ('adapter rung 128, coverage only', 512, 10240, 128)]),
@@ -265,6 +279,10 @@ KERNELS = {
         replaces_also=['porechop_tpu/ops/kernel_pallas.py:979'],
         shapes=[('detection group max', 16384, 150, 24),
                 ('detection group max', 16384, 150, 48),
+                ('stretch survivors', 32, 1024, 24),
+                ('stretch survivors', 32, 1536, 48),
+                (RAGGED, 16387, 1100, 48),
+                (RAGGED, 2051, 1100, 24),
                 ('middle survivors', 1024, 10240, 32),
                 ('middle survivors, adapter rung 48', 1024, 10240, 64),
                 ('barcoded middle survivors', 512, 10240, 96),
@@ -322,17 +340,25 @@ WALK = dict(
 ALL_KERNELS = [*KERNELS, 'walk']
 # Events time under which a kernel is timed from its CUDA kernel durations.
 CUPTI_BELOW_MS = 0.1
+# Score and stats launches of every in-process run by (kernel, 'AMAX/LW'),
+# and the narrow instantiations the runs must launch (adapter rungs 16-24
+# and 48 in launches of many lanes: the 10 kb run's detection prefilter
+# and group max, its round 0 at rung 48).
+WAVE_TOTAL = collections.Counter()
+NARROW = [(name, layout) for name in ('forward_score', 'forward_stats')
+          for layout in ('24/8', '48/16')]
 
 
 def _inputs(B, L, A, seed, what=None):
     """Main-path-like lanes: reads 90-100% of the rung, adapters 75-100%
-    of theirs (for the shape `what` MIXED, MIXED_ALENS in turn), one lane
-    in ten carrying its adapter."""
+    of theirs (for the shape `what` MIXED, MIXED_ALENS in turn; RAGGED, 0
+    to 100% of each), one lane in ten carrying its adapter."""
     rng = np.random.default_rng(seed)
     reads = rng.integers(0, 4, (B, L)).astype(np.int8)
-    rl = rng.integers((9 * L) // 10, L + 1, B).astype(np.int32)
+    lo = (0, 0) if what == RAGGED else ((9 * L) // 10, (3 * A) // 4)
+    rl = rng.integers(lo[0], L + 1, B).astype(np.int32)
     adps = rng.integers(0, 4, (B, A)).astype(np.int8)
-    al = rng.integers((3 * A) // 4, A + 1, B).astype(np.int32)
+    al = rng.integers(lo[1], A + 1, B).astype(np.int32)
     if what == MIXED:
         al = np.resize(np.array(MIXED_ALENS, np.int32), B)
     for k in range(0, B, 10):
@@ -461,9 +487,22 @@ def _bits_err(got, want, rl, al):
     return int(((got.int() - want.int()).abs() * region).max())
 
 
+def layouts(kernels, name, B, A):
+    """(lanes a warp that the wrapper picks, the layouts it picks between:
+    one lane a warp and, at adapter rungs 16-24 and 48, the narrow one) of
+    a score or stats launch; (1, [1]) for the trace-bit kernel, which runs
+    one lane a warp."""
+    narrow = kernels.narrow_group(A)
+    if name not in ('forward_score', 'forward_stats') or narrow is None:
+        return 1, [1]
+    return kernels.lane_group(name, B, A), [1, narrow]
+
+
 def check_kernels(kernels, specs=KERNELS, seed=0):
     """Each kernel of specs against its plain version at its shapes (by
-    default the main path's): exact, and timed."""
+    default the main path's), score and stats in both layouts at adapter
+    rungs 16-24 and 48 (one lane a warp, and four or two): exact, and
+    timed in the layout the wrapper picks."""
     results = {}
     for n, (name, spec_) in enumerate(specs.items()):
         kern = getattr(kernels, name)
@@ -471,24 +510,33 @@ def check_kernels(kernels, specs=KERNELS, seed=0):
         rows = []
         for m, (what, B, L, A) in enumerate(spec_['shapes']):
             x = _inputs(B, L, A, seed=seed + 10 * n + m, what=what)
-            got = kern(*x, *SCHEME)
+            group, allowed = layouts(kernels, name, B, A)
             want, plain_ms = _once_ms(lambda: plain(*x, *SCHEME))
-            torch.cuda.synchronize()
-            if name == 'forward_score':
-                got, want = [got], [want]
             err = 0
-            if name == 'forward_tiled':
-                err = _bits_err(got[0], want[0], x[1], x[3])
-                got, want = got[1:], want[1:]
-            err = max(err, _max_err(got, want))
-            if err != 0:
-                raise AssertionError('%s disagrees with its plain version '
-                                     'at %s (%d x %d x %d): max |err| %d'
-                                     % (name, what, B, L, A, err))
-            del got, want
+            for g in allowed:
+                got = (kern(*x, *SCHEME) if len(allowed) == 1
+                       else kern(*x, *SCHEME, group=g))
+                torch.cuda.synchronize()
+                if name == 'forward_score':
+                    got, want_ = [got], [want]
+                else:
+                    want_ = want
+                if name == 'forward_tiled':
+                    err = _bits_err(got[0], want[0], x[1], x[3])
+                    got, want_ = got[1:], want[1:]
+                err = max(err, _max_err(got, want_))
+                if err != 0:
+                    raise AssertionError(
+                        '%s disagrees with its plain version at %s (%d x %d '
+                        'x %d, %d lanes a warp): max |err| %d'
+                        % (name, what, B, L, A, g, err))
+                del got
+            del want
             rows.append(_row(name, what, B, L, A,
                              _kernel_ms(lambda: kern(*x, *SCHEME)), plain_ms,
-                             _bound(name, B, L, A, x[1], x[3]), err))
+                             _bound(name, B, L, A, x[1], x[3]), err,
+                             layout=kernels.wave_layout(A, group),
+                             group=group, layouts_checked=allowed))
             del x
         results[name] = rows
     return results
@@ -649,6 +697,10 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True,
               dict(kernels.DEVICE_LAUNCHES)), flush=True)
     print('  forward_tiled launches by (lanes, L, A, chunks): %s'
           % ', '.join('%s x %d' % (k, n) for k, n in tiled), flush=True)
+    print('  score and stats launches by instantiation (AMAX/LW): %s'
+          % ', '.join('%s %s x %d' % (*k, n) for k, n in
+                      sorted(kernels.WAVE_CALLS.items())), flush=True)
+    WAVE_TOTAL.update(kernels.WAVE_CALLS)
     routes = _routes()
     print('  routes (jobs, padded cells): %s' % ', '.join(
         '%s %d, %.4g' % (r, n, c) for r, (n, c) in routes.items()),
@@ -1406,6 +1458,12 @@ def main():
                                        walk_only=True)['walk']
     with recorded_shapes(kernels) as shapes:
         runs, ten_kb = on_card_runs(cli, kernels, shapes)
+    print('score and stats launches of the runs in process by '
+          'instantiation: %s' % dict(sorted(WAVE_TOTAL.items())), flush=True)
+    idle = [k for k in NARROW if not WAVE_TOTAL[k]]
+    if idle:
+        raise AssertionError('no run launched the narrow instantiations %s'
+                             % idle)
     check_no_bits_on_one_tile(shapes['bits'])
     check_launched_shapes(kernels, shapes, timings)
     if torch.cuda.device_count() > 1:
@@ -1430,6 +1488,9 @@ def main():
             replaces=spec_['replaces'],
             replaces_also=spec_['replaces_also'],
             launches=sum(by_run.values()), launches_by_run=by_run,
+            launches_by_instantiation={
+                layout: n for (k, layout), n in sorted(WAVE_TOTAL.items())
+                if k == name} or None,
             max_abs_err=max(r['max_abs_err'] for r in timings[name]),
             ms=primary['ms'], ms_events=primary['ms_events'],
             timing=primary['timing'], plain_ms=primary['plain_ms'],

@@ -1,6 +1,6 @@
 // One semi-global affine-gap DP (Gotoh, free end gaps, SeqAn tie rules) and
-// one wavefront kernel body, dp_wave_kernel<MODE, AMAX>, instantiated by the
-// three hand-written Hopper kernels of this package:
+// one wavefront kernel body, dp_wave_kernel<MODE, AMAX, LW>, instantiated by
+// the three hand-written Hopper kernels of this package:
 //
 //   dp_score.cu   SCORE: best score only    (replaces porechop_tpu/ops/
 //                                             kernel_pallas.py _score_kernel
@@ -24,38 +24,52 @@
 // Design.  The TPU kernels keep lanes (one read window against one adapter)
 // in vector lanes and sweep adapter rows, with a windowed log-shift prefix
 // max for H (kernel_pallas._prefix_window).  Here the parallel work inside
-// one lane is across adapter rows, on the anti-diagonal: one warp per lane,
-// thread t owning the R = AMAX / 32 consecutive rows [R t, R t + R).  At
-// step s of a tile thread t computes column j = jlo + s - t for its rows,
-// top to bottom; the row above its first row (M and V at column j, M at
-// column j - 1 received one step earlier, and for STATS their payloads)
-// comes from thread t - 1 by __shfl_up_sync, and thread 0 uses row 0's
-// boundary (M = 0, V = NEG).  H, the last M of each row (and STATS's
-// payloads, BITS's H_EXT bits) stay in the owning thread's registers, so a
-// tile edge costs no trip through memory.  H is computed exactly, column by
-// column, so there is no prefix window.  A tile of T columns fills and
-// drains the wavefront in T + 31 steps; its read codes are staged in shared
-// memory with coalesced loads.  A lane stops at its own read length, so the
-// work is what each lane's data needs, and any L is taken.
+// one lane is across adapter rows, on the anti-diagonal: LW threads per
+// lane (a warp, or for SCORE and STATS at narrow rungs 8 or 16 threads,
+// G = 32 / LW lanes sharing a warp), thread t of a lane owning the R = AMAX
+// / LW consecutive rows [R t, R t + R).  At step s of a tile thread t
+// computes column j = jlo + s - t for its rows, top to bottom; the row
+// above its first row (M and V at column j, M at column j - 1 received one
+// step earlier, and for STATS their payloads) comes from thread t - 1 by
+// __shfl_up_sync of width LW, and thread 0 uses row 0's boundary (M = 0,
+// V = NEG).  H, the last M of each row (and STATS's payloads, BITS's H_EXT
+// bits) stay in the owning thread's registers, so a tile edge costs no
+// trip through memory.  H is computed exactly, column by column, so there
+// is no prefix window.  A tile of T columns fills and drains the wavefront
+// in T + LW - 1 steps; its read codes are staged in shared memory with
+// coalesced loads.  A lane stops at its own read length, so the work is
+// what each lane's data needs, and any L is taken.  Where lanes share a
+// warp, the warp steps to the largest bound of its lanes (tiles, steps;
+// a lane past B has no rows and no columns) and each lane masks its own
+// cells, so that every full-mask shuffle is reached by all 32 threads.
 //
-//   mode   T      warps (lanes) per block  shared memory per warp
-//   SCORE  1,024  4                        T read codes
-//   STATS  1,024  4                        T read codes
-//   BITS   256    1                        T read codes + AMAX x T trace
-//                                          bytes, written out a row at a
-//                                          time with 16-byte stores
-// SCORE and STATS need almost no shared memory, so 4-warp blocks let an SM
-// hold all 64 of its warps (a one-warp block caps it at 32 blocks); BITS's
-// trace-byte buffer (8.4, 16.6, 24.8 and 33 KB per warp at AMAX 32, 64, 96
-// and 128) bounds its warps per SM first (dp_tiled.cu pdp_tiled_warps asks
-// the runtime how many).
+//   mode   T      warps per block  lanes a warp  shared memory per warp
+//   SCORE  1,024  4                1, 2 or 4     T read codes a lane
+//   STATS  1,024  4                1, 2 or 4     T read codes a lane
+//   BITS   256    1                1             T read codes + AMAX x T
+//                                                trace bytes, written out
+//                                                a row at a time with
+//                                                16-byte stores
+// SCORE and STATS need little shared memory (1 to 4 KB a warp), so 4-warp
+// blocks let registers, not shared memory, bound their warps per SM;
+// BITS's trace-byte buffer (8.4, 16.6, 24.8 and 33 KB per warp at AMAX 32,
+// 64, 96 and 128) bounds its warps per SM first.  card_warps below asks
+// the runtime how many warps of a one-lane-a-warp instantiation the card
+// holds (dp_tiled.cu pdp_tiled_warps, dp_score.cu and dp_stats.cu
+// pdp_*_warps).
 //
 // The planner pads adapters to the JAX package's rungs (ops/dispatch.py
-// _A_LADDER: 16, 24, 32, 48, 64, 96, 128).  Rungs up to 32 run on AMAX 32,
-// 48 and 64 on AMAX 64, 96 (the barcoded runs' rung) on AMAX 96, computing
-// its 96 rows as the JAX kernels do instead of 128, and 128 on AMAX 128.
-// Rungs 16, 24 and 48 still carry padding rows (48 would need R = 1.5).
-// Nothing in the body needs R or AMAX to be a power of two.
+// _A_LADDER: 16, 24, 32, 48, 64, 96, 128).  Instantiations (AMAX, LW):
+// (32|64|96|128, 32) in every mode, the narrowest covering A; SCORE and
+// STATS also (24, 8) and (48, 16), three rows a thread, for rungs 16-24
+// and 48 (there is no built-in adapter of 16 bases or fewer, so rung 16
+// runs only on the 24 instantiation's rows).  ops/kernels.py lane_group
+// takes them for a launch of at least 3/4 as many lanes as the card holds
+// one-lane-a-warp warps of the kernel, where the launch is bound by issue
+// and the padding rows of AMAX 32 or 64 (8 or 16 of its threads idle on
+// every step, 31 fill steps a tile instead of 7 or 15) cost the most; a
+// launch of fewer lanes keeps one lane a warp (below).  Nothing in the
+// body needs R or AMAX to be a power of two.
 //
 // BITS may also cut a lane into column chunks, one warp each, every chunk
 // but the first starting with a warm-up sweep whose length is proven to
@@ -72,19 +86,21 @@
 // Scouts: the thread holding row adapter_len keeps the last-row leftmost
 // maximum over columns [0, read_len) with a strict > in increasing j; the
 // final-column scout (first strict maximum down column read_len from
-// M(0, read_len) = 0) is a per-thread scan of its rows then a warp
-// reduction (the largest M, then the smallest row holding it), carrying
-// the elected start state's flags (BITS) or payload (STATS: V == M -> V,
-// else H == M -> H, else M); then the column-against-row election.  SCORE
-// keeps a per-thread max over the last column and the last row, then a
-// warp max.
+// M(0, read_len) = 0) is a per-thread scan of its rows then a butterfly
+// over the lane's threads (the largest M, then the smallest row holding
+// it), carrying the elected start state's flags (BITS) or payload (STATS:
+// V == M -> V, else H == M -> H, else M); then the column-against-row
+// election.  SCORE keeps a per-thread max over the last column and the
+// last row, then a max over the lane's threads.
 //
 // What bounds it on an H100: the instruction rate (a step is two or four
 // shuffles, the boundary selects, and R cells of integer operations) once a
-// launch holds enough warps.  A lane takes read_len + 31 x tiles dependent
-// steps however wide the card, so a SCORE or STATS launch of few lanes is
-// still bound by that chain; BITS splits such a launch into column chunks
-// and pays the warm-up instead.
+// launch holds enough warps.  A lane takes read_len + (LW - 1) x tiles
+// dependent steps of R cells each however wide the card, so a SCORE or
+// STATS launch of few lanes is still bound by that chain, which three rows
+// a thread lengthen (the reason lane_group keeps such launches at one lane
+// a warp); BITS splits such a launch into column chunks and pays the
+// warm-up instead.
 #pragma once
 
 #include <cstdint>
@@ -110,8 +126,9 @@ __host__ __device__ constexpr int tile_of(int mode) {
 __host__ __device__ constexpr int warps_of(int mode) {
   return mode == BITS ? 1 : 4;
 }
-__host__ __device__ constexpr int smem_of(int mode, int amax) {  // per warp
-  return tile_of(mode) * (mode == BITS ? 1 + amax : 1);
+// Per warp, of g lanes: each lane's T read codes (BITS: and its trace bytes).
+__host__ __device__ constexpr int smem_of(int mode, int amax, int g = 1) {
+  return tile_of(mode) * (mode == BITS ? 1 + amax : g);
 }
 
 // Error codes returned to the Python wrapper besides cudaError_t values.
@@ -119,6 +136,7 @@ constexpr int ERR_ADAPTER_TOO_LONG = 100000;
 constexpr int ERR_BAD_L1P = 100001;
 constexpr int ERR_BAD_SPLIT = 100002;
 constexpr int ERR_NULL_OUTPUT = 100003;  // a null output the call writes
+constexpr int ERR_BAD_GROUP = 100004;    // lanes a warp the width refuses
 
 // BITS split into column chunks: ints per (chunk, lane) partial scout --
 // last-row score, column and flags, final-column score and key.
@@ -243,26 +261,37 @@ __device__ __forceinline__ uint8_t col0_byte(int go, int ge) {
 // A BITS warp stages its walk in its trace-byte buffer (sbits).
 static_assert(STAGE_BYTES <= 32 * TILE_T, "the walk's block fits in sbits");
 
-template <int MODE, int AMAX>
+// LW threads a lane: G = 32 / LW lanes share a warp, each thread owning R =
+// AMAX / LW rows.  With G > 1 the lanes of a warp end at different columns,
+// so every loop bound below that differs between lanes is the warp's
+// maximum, and a lane past its own bound (or past B) steps masked: every
+// full-mask shuffle is reached by all 32 threads.
+template <int MODE, int AMAX, int LW = 32>
 __global__ void __launch_bounds__(32 * warps_of(MODE))
 dp_wave_kernel(ArgsOf<MODE> p) {
-  constexpr int R = AMAX / 32;
+  static_assert(MODE != BITS || LW == 32, "BITS runs one lane a warp");
+  static_assert(32 % LW == 0 && AMAX % LW == 0, "whole lanes, whole rows");
+  constexpr int G = 32 / LW;
+  constexpr int R = AMAX / LW;
   constexpr int T = tile_of(MODE);
-  constexpr int W = warps_of(MODE), SMEM = smem_of(MODE, AMAX);
+  constexpr int W = warps_of(MODE), SMEM = smem_of(MODE, AMAX, G);
   constexpr bool SC = MODE == SCORE, ST = MODE == STATS, BI = MODE == BITS;
   constexpr int P0 = PAY_G_BIAS;
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int t = threadIdx.x & 31;
+  const int tg = t % LW;               // rank in the lane
   const int w = W > 1 ? threadIdx.x >> 5 : 0;
   // BITS: block k * B + b sweeps column chunk k of lane b (k = 0 unsplit).
-  const int b = BI ? (int)(blockIdx.x % p.B) : blockIdx.x * W + w;
-  if (b >= p.B) return;                // the whole warp: one lane per warp
-  uint8_t* sread = smem + w * SMEM;
+  const int b0 = BI ? (int)(blockIdx.x % p.B) : (blockIdx.x * W + w) * G;
+  if (b0 >= p.B) return;               // the whole warp
+  const int b = b0 + t / LW;
+  const bool live = G == 1 || b < p.B; // a lane past B steps masked
+  uint8_t* sread = smem + w * SMEM + (t / LW) * T;
   uint8_t* sbits = sread + T;          // BITS: [adapter row][T] trace bytes
 
-  const int rlen = lane_len(p.read_lens, b, p.L);
-  const int alen = lane_len(p.adapter_lens, b, p.A);
+  const int rlen = live ? lane_len(p.read_lens, b, p.L) : 0;
+  const int alen = live ? lane_len(p.adapter_lens, b, p.A) : 0;
   // Own columns [c0, c1), after a warm-up over [w0, c0) that writes no
   // trace bytes and scouts nothing.  A chunk starting past read_len has no
   // column to own.
@@ -285,7 +314,7 @@ dp_wave_kernel(ArgsOf<MODE> p) {
   bool store_bits = false;
   if constexpr (BI) store_bits = p.walk == nullptr || p.L1p != T;
 
-  const int row0 = R * t;              // this thread's first row slot
+  const int row0 = R * tg;             // this thread's first row slot
   const int nt = (alen + R - 1) / R;   // threads that own rows < alen
   const int last_row = alen - 1;       // slot of row adapter_len
   int acode[R], M[R], Hn[R];
@@ -309,7 +338,7 @@ dp_wave_kernel(ArgsOf<MODE> p) {
   int m_prev = cold ? NEG : 0; // M(row0 - 1, j - 1), received a step earlier
   int pm_out = P0, pv_out = P0, pm_prev = P0;   // STATS: their payloads
   int best = 0;                                 // SCORE
-  const bool last_row_here = alen > 0 && t == last_row / R;
+  const bool last_row_here = alen > 0 && tg == last_row / R;
   int tsc = 0, ti = 0, tpay = P0;
   bool tvf = false, thf = false;
   // The last-row scout starts at column 0 (M = 0) in the chunk holding it.
@@ -317,12 +346,14 @@ dp_wave_kernel(ArgsOf<MODE> p) {
   int rpay = P0;
   bool rvf = false, rhf = false;
 
-  const int tile_hi = (c1 + T - 1) / T;  // columns w0..c1 - 1
+  // Columns w0..c1 - 1; the warp's last lane to end sets the tiles.
+  const int c1_warp = G == 1 ? c1 : __reduce_max_sync(FULL_MASK, c1);
+  const int tile_hi = (c1_warp + T - 1) / T;
   for (int tile = w0 / T; tile < tile_hi; ++tile) {
     const int jlo = tile * T;
     const int jhi = min(jlo + T, c1);
     const bool own = !BI || jlo >= c0;   // c0 is a multiple of T
-    for (int c = t; c < jhi - jlo; c += 32) {    // column j holds read[j-1]
+    for (int c = tg; c < jhi - jlo; c += LW) {   // column j holds read[j-1]
       const int j = jlo + c;
       sread[c] = j > 0 ? (uint8_t)read[j - 1] : (uint8_t)4;
     }
@@ -337,23 +368,26 @@ dp_wave_kernel(ArgsOf<MODE> p) {
     __syncwarp();
 
     const int jstart = BI ? max(max(jlo, w0), 1) : max(jlo, 1);
-    const int nsteps = jhi - jlo + (nt > 0 ? nt - 1 : 0);
+    // A lane past its last column has jhi <= jlo: all its steps masked.
+    const int lane_steps = jhi - jlo + (nt > 0 ? nt - 1 : 0);
+    const int nsteps =
+        G == 1 ? lane_steps : __reduce_max_sync(FULL_MASK, lane_steps);
     for (int s = 0; s < nsteps; ++s) {
-      const int m_in = __shfl_up_sync(FULL_MASK, m_out, 1);
-      const int v_in = __shfl_up_sync(FULL_MASK, v_out, 1);
+      const int m_in = __shfl_up_sync(FULL_MASK, m_out, 1, LW);
+      const int v_in = __shfl_up_sync(FULL_MASK, v_out, 1, LW);
       int pm_in = P0, pv_in = P0;
       if constexpr (ST) {
-        pm_in = __shfl_up_sync(FULL_MASK, pm_out, 1);
-        pv_in = __shfl_up_sync(FULL_MASK, pv_out, 1);
+        pm_in = __shfl_up_sync(FULL_MASK, pm_out, 1, LW);
+        pv_in = __shfl_up_sync(FULL_MASK, pv_out, 1, LW);
       }
-      const int j = jlo + s - t;
-      if (t < nt && j >= jstart && j < jhi) {
-        int mdiag = t == 0 ? 0 : m_prev;
-        int mup = t == 0 ? 0 : m_in;
-        int vup = t == 0 ? NEG : v_in;
-        int pdiag = t == 0 ? P0 : pm_prev;
-        int pmup = t == 0 ? P0 : pm_in;
-        int pvup = t == 0 ? P0 : pv_in;
+      const int j = jlo + s - tg;
+      if (tg < nt && j >= jstart && j < jhi) {
+        int mdiag = tg == 0 ? 0 : m_prev;
+        int mup = tg == 0 ? 0 : m_in;
+        int vup = tg == 0 ? NEG : v_in;
+        int pdiag = tg == 0 ? P0 : pm_prev;
+        int pmup = tg == 0 ? P0 : pm_in;
+        int pvup = tg == 0 ? P0 : pv_in;
         const int rc = sread[j - jlo];
         const bool last_col = j == rlen;
         uint8_t* col = sbits + (j - jlo);
@@ -446,18 +480,24 @@ dp_wave_kernel(ArgsOf<MODE> p) {
     // rows past adapter_len keep M = 0 <= best.
 #pragma unroll
     for (int r = 0; r < R; ++r) best = max(best, M[r]);
-    best = __reduce_max_sync(FULL_MASK, best);
-    if (t == 0) p.best[b] = best;
+    if constexpr (G == 1) {
+      best = __reduce_max_sync(FULL_MASK, best);
+    } else {
+#pragma unroll
+      for (int off = LW / 2; off > 0; off >>= 1)
+        best = max(best, __shfl_xor_sync(FULL_MASK, best, off, LW));
+    }
+    if (tg == 0 && live) p.best[b] = best;
   } else {
-    // Final-column scout across the warp: the largest M, then the smallest
+    // Final-column scout across the lane: the largest M, then the smallest
     // row (ti packs the row and both flags).
     int tkey = (ti << 2) | (tvf ? 2 : 0) | (thf ? 1 : 0);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int osc = __shfl_xor_sync(FULL_MASK, tsc, off);
-      const int okey = __shfl_xor_sync(FULL_MASK, tkey, off);
+    for (int off = LW / 2; off > 0; off >>= 1) {
+      const int osc = __shfl_xor_sync(FULL_MASK, tsc, off, LW);
+      const int okey = __shfl_xor_sync(FULL_MASK, tkey, off, LW);
       int opay = P0;
-      if constexpr (ST) opay = __shfl_xor_sync(FULL_MASK, tpay, off);
+      if constexpr (ST) opay = __shfl_xor_sync(FULL_MASK, tpay, off, LW);
       if (osc > tsc || (osc == tsc && okey < tkey)) {
         tsc = osc;
         tkey = okey;
@@ -465,11 +505,11 @@ dp_wave_kernel(ArgsOf<MODE> p) {
       }
     }
     const int owner = alen > 0 ? last_row / R : 0;
-    rsc = __shfl_sync(FULL_MASK, rsc, owner);
-    rj = __shfl_sync(FULL_MASK, rj, owner);
+    rsc = __shfl_sync(FULL_MASK, rsc, owner, LW);
+    rj = __shfl_sync(FULL_MASK, rj, owner, LW);
     const int rflags = __shfl_sync(FULL_MASK, (rvf ? 2 : 0) | (rhf ? 1 : 0),
-                                   owner);
-    if constexpr (ST) rpay = __shfl_sync(FULL_MASK, rpay, owner);
+                                   owner, LW);
+    if constexpr (ST) rpay = __shfl_sync(FULL_MASK, rpay, owner, LW);
     if constexpr (BI) {
       if (p.nch > 1) {         // folded across chunks by bits_fold_kernel
         if (t == 0) {
@@ -499,7 +539,7 @@ dp_wave_kernel(ArgsOf<MODE> p) {
           if (t == 0) walk_store(wk, p.walk + (size_t)b * WALK_OUTS);
         }
       }
-    } else if (t == 0) {
+    } else if (tg == 0 && live) {
       const bool col_wins = tsc > rsc;
       p.best[b] = col_wins ? tsc : rsc;
       p.cell_i[b] = col_wins ? tkey >> 2 : alen;
@@ -509,15 +549,15 @@ dp_wave_kernel(ArgsOf<MODE> p) {
   }
 }
 
-template <int MODE, int AMAX>
+template <int MODE, int AMAX, int LW = 32>
 int launch_wave(const ArgsOf<MODE>& p, cudaStream_t stream) {
-  constexpr int W = warps_of(MODE);
-  const int smem = W * smem_of(MODE, AMAX);
-  auto kern = dp_wave_kernel<MODE, AMAX>;
+  constexpr int W = warps_of(MODE), G = 32 / LW;
+  const int smem = W * smem_of(MODE, AMAX, G);
+  auto kern = dp_wave_kernel<MODE, AMAX, LW>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  int blocks = (p.B + W - 1) / W;
+  int blocks = (p.B + W * G - 1) / (W * G);
   if constexpr (MODE == BITS) blocks = p.B * p.nch;
   const dim3 grid(blocks);
   const dim3 block(32 * W);
@@ -525,15 +565,54 @@ int launch_wave(const ArgsOf<MODE>& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Launches the narrowest instantiation whose rows cover A and returns 0 or
-// an error code (cudaGetLastError() after the launch).
+// Launches, for `group` lanes a warp, the narrowest instantiation whose
+// rows cover A: with one lane a warp AMAX 32, 64, 96 or 128; SCORE and
+// STATS also take four lanes of 8 threads (AMAX 24) or two of 16 (AMAX
+// 48), three rows a thread.  Returns 0 or an error code
+// (cudaGetLastError() after the launch).
 template <int MODE>
-int launch(const ArgsOf<MODE>& p, cudaStream_t stream) {
+int launch(const ArgsOf<MODE>& p, int group, cudaStream_t stream) {
   if (p.B <= 0) return 0;
+  if (p.A > 128) return ERR_ADAPTER_TOO_LONG;
+  if constexpr (MODE != BITS) {
+    if (group == 4 && p.A <= 24) return launch_wave<MODE, 24, 8>(p, stream);
+    if (group == 2 && p.A <= 48) return launch_wave<MODE, 48, 16>(p, stream);
+  }
+  if (group != 1) return ERR_BAD_GROUP;
   if (p.A <= 32) return launch_wave<MODE, 32>(p, stream);
   if (p.A <= 64) return launch_wave<MODE, 64>(p, stream);
   if (p.A <= 96) return launch_wave<MODE, 96>(p, stream);
-  if (p.A <= 128) return launch_wave<MODE, 128>(p, stream);
+  return launch_wave<MODE, 128>(p, stream);
+}
+
+// The blocks of dp_wave_kernel<MODE, AMAX> (one lane a warp) that the
+// current device holds at once, times its warps a block: its resident
+// warps, as the runtime's occupancy query gives them.
+template <int MODE, int AMAX>
+int resident_warps(int* warps) {
+  constexpr int W = warps_of(MODE);
+  auto kern = dp_wave_kernel<MODE, AMAX>;
+  const int smem = W * smem_of(MODE, AMAX);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * W,
+                                                      smem);
+  *warps = per_sm * sms * W;
+  return (int)e;
+}
+
+// resident_warps of the one-lane-a-warp instantiation that serves A.
+template <int MODE>
+int card_warps(int A, int* warps) {
+  if (A <= 32) return resident_warps<MODE, 32>(warps);
+  if (A <= 64) return resident_warps<MODE, 64>(warps);
+  if (A <= 96) return resident_warps<MODE, 96>(warps);
+  if (A <= 128) return resident_warps<MODE, 128>(warps);
   return ERR_ADAPTER_TOO_LONG;
 }
 

@@ -15,20 +15,34 @@
 // dependent chain instead: the barcoded survivors' 512 x 10,240 x 96
 // take 2.64 ms on the AMAX 96 instantiation (three rows a thread) against
 // a 0.40 ms bound, where AMAX 128 took 3.21 ms (both in one call).
+// Adapter rungs 16-24 and 48 run as four lanes of 8 threads or two of 16 a
+// warp in launches of many lanes (ops/kernels.py lane_group): the
+// barcoded detection's 1,048,576 x 150 x 24 takes 6.93 ms there against
+// 11.42 one lane a warp, 16,384 x 150 x 48 0.248 against 0.356; few-lane
+// launches keep one lane a warp, where three rows a thread double the
+// chain (512 x 10,240 x 24: 2.62 against 1.22; time_kernels.py --layouts,
+// one call).
 #include "dp_common.cuh"
 
 extern "C" int pdp_forward_stats(const void* reads, const void* read_lens,
                                  const void* adapters,
                                  const void* adapter_lens, int B, int L,
                                  int A, int match, int mismatch,
-                                 int gap_open, int gap_ext, void* best,
-                                 void* cell_i, void* cell_j, void* pay,
-                                 void* stream) {
+                                 int gap_open, int gap_ext, int group,
+                                 void* best, void* cell_i, void* cell_j,
+                                 void* pay, void* stream) {
   pdp::Args p = pdp::make_args(reads, read_lens, adapters, adapter_lens, B,
                                L, A, 0, match, mismatch, gap_open, gap_ext);
   p.best = static_cast<int32_t*>(best);
   p.cell_i = static_cast<int32_t*>(cell_i);
   p.cell_j = static_cast<int32_t*>(cell_j);
   p.pay = static_cast<int32_t*>(pay);
-  return pdp::launch<pdp::STATS>(p, static_cast<cudaStream_t>(stream));
+  return pdp::launch<pdp::STATS>(p, group,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// The warps of the one-lane-a-warp instantiation for adapter width A that
+// the current device holds at once (ops/kernels.py lane_group's threshold).
+extern "C" int pdp_stats_warps(int A, int* warps) {
+  return pdp::card_warps<pdp::STATS>(A, warps);
 }

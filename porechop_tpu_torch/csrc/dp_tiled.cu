@@ -112,26 +112,6 @@ bits_fold_kernel(pdp::BitsArgs p) {
   if (lead) pdp::walk_store(wk, p.walk + (size_t)b * pdp::WALK_OUTS);
 }
 
-// One-warp blocks of dp_wave_kernel<BITS, AMAX> that the current device
-// holds at once: the runtime's occupancy at the kernel's shared memory and
-// registers, times the SMs.
-template <int AMAX>
-int resident_warps(int* warps) {
-  auto kern = pdp::dp_wave_kernel<pdp::BITS, AMAX>;
-  const int smem = pdp::smem_of(pdp::BITS, AMAX);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32,
-                                                      smem);
-  *warps = per_sm * sms;
-  return (int)e;
-}
-
 // The trace-bit call of pdp_forward_tiled and pdp_forward_walk: the
 // kernel, then, for a split launch, the fold; walk null for no walk.
 int forward_bits(const void* reads, const void* read_lens,
@@ -161,7 +141,7 @@ int forward_bits(const void* reads, const void* read_lens,
   p.vflag = static_cast<uint8_t*>(vflag);
   p.hflag = static_cast<uint8_t*>(hflag);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = pdp::launch<pdp::BITS>(p, s);
+  const int rc = pdp::launch<pdp::BITS>(p, 1, s);
   if (rc != 0 || p.nch == 1) return rc;
   const int smem = walk == nullptr ? 0 : FOLD_WARPS * pdp::STAGE_BYTES;
   bits_fold_kernel<<<(B + FOLD_WARPS - 1) / FOLD_WARPS, 32 * FOLD_WARPS,
@@ -174,11 +154,7 @@ int forward_bits(const void* reads, const void* read_lens,
 // The warps of the trace-bit kernel for adapter width A that the current
 // device holds at once (ops/kernels.py card_warps, split_plan's target).
 extern "C" int pdp_tiled_warps(int A, int* warps) {
-  if (A <= 32) return resident_warps<32>(warps);
-  if (A <= 64) return resident_warps<64>(warps);
-  if (A <= 96) return resident_warps<96>(warps);
-  if (A <= 128) return resident_warps<128>(warps);
-  return pdp::ERR_ADAPTER_TOO_LONG;
+  return pdp::card_warps<pdp::BITS>(A, warps);
 }
 
 // chunk_cols: columns per chunk, a multiple of TILE_T (>= L + 1: one chunk);

@@ -20,11 +20,18 @@ rung 96 computes its 96 rows, not 128 (on an H100 SXM at 700 W,
 time_kernels.py: score at 4,096 x 10,240 x 96 3.97 ms against 4.74 on
 AMAX 128, stats at 512 lanes 2.64 against 3.21, and the trace-bit call
 with its walk at 512 lanes 2.10 against 3.91, since on AMAX 96 the card
-holds enough warps for its plan to split them).  On a card, wider
-adapters raise.  Every kernel takes any L: a lane stops at its own read
-length.  Score and stats run four lanes to a block in SCAN_T-column tiles,
-the trace-bit forward one lane to a block in TILE_T-column tiles whose
-trace bytes are staged in shared memory; a launch of few long lanes cuts
+holds enough warps for its plan to split them).  Score and stats also run
+adapter rungs 16-24 as four lanes of 8 threads a warp (AMAX 24) and rung
+48 as two of 16 (AMAX 48), three rows a thread, so that those lanes
+compute no padding rows; lane_group takes that layout for a launch of at
+least NARROW_FROM (3/4) as many lanes as the card holds one-lane-a-warp
+warps of the kernel (card_warps, from the runtime's occupancy query),
+where the launch is bound by issue, and keeps one lane a warp for fewer,
+whose chain of steps three rows a thread would lengthen.  On a card,
+wider adapters raise.  Every kernel takes any L: a lane stops at its own
+read length.  Score and stats run four warps to a block in SCAN_T-column
+tiles, the trace-bit forward one lane to a block in TILE_T-column tiles
+whose trace bytes are staged in shared memory; a launch of few long lanes cuts
 each lane into column chunks, one warp each, after a proven warm-up, so
 that it fills the card (split_plan, card_warps, csrc/dp_tiled.cu), and a
 small second kernel there folds the chunks' scouts.
@@ -101,6 +108,9 @@ DEVICE_LAUNCHES = collections.Counter()
 # Trace-bit calls (forward_tiled and forward_walk) by (lanes, L, A, chunks
 # per lane), reset with LAUNCHES.
 TILED_CALLS = collections.Counter()
+# Score and stats launches by (kernel, instantiation 'AMAX/LW'), reset with
+# LAUNCHES.
+WAVE_CALLS = collections.Counter()
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
@@ -123,6 +133,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     DEVICE_LAUNCHES.clear()
     TILED_CALLS.clear()
+    WAVE_CALLS.clear()
 
 
 def warm_bound(A: int, scoring):
@@ -225,23 +236,27 @@ def _lib(name: str):
 
 def bind(path, name: str):
     """The C function pdp_<name> of the shared library at path, with its
-    argument types set; for forward_tiled, with the library's
-    pdp_tiled_warps(A, int *warps) as its attribute `warps`."""
+    argument types set; for forward_tiled, forward_score and
+    forward_stats, with the library's occupancy query pdp_<mode>_warps(A,
+    int *warps) as its attribute `warps`."""
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, 'pdp_' + name)
-    # The forwards: reads, read_lens, adapters, adapter_lens; the ints; the
-    # outputs; the stream.  The walk: bits, cell_i, cell_j, vflag, hflag;
-    # B, L1p; the output; the stream.
-    n_in, n_int, n_out = {'forward_score': (4, 7, 1),
-                          'forward_stats': (4, 7, 4),
+    # The forwards: reads, read_lens, adapters, adapter_lens; the ints
+    # (score and stats: B, L, A, the scheme, lanes a warp); the outputs;
+    # the stream.  The walk: bits, cell_i, cell_j, vflag, hflag; B, L1p;
+    # the output; the stream.
+    n_in, n_int, n_out = {'forward_score': (4, 8, 1),
+                          'forward_stats': (4, 8, 4),
                           'forward_tiled': (4, 10, 7),
                           'forward_walk': (4, 10, 8),
                           'walk': (5, 2, 1)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p] * (n_out + 1))
     fn.restype = ctypes.c_int
-    if name == 'forward_tiled':
-        fn.warps = lib.pdp_tiled_warps
+    query = {'forward_tiled': 'tiled', 'forward_score': 'score',
+             'forward_stats': 'stats'}.get(name)
+    if query:
+        fn.warps = getattr(lib, 'pdp_%s_warps' % query)
         fn.warps.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.warps.restype = ctypes.c_int
     return fn
@@ -256,22 +271,69 @@ def _on(device):
 
 
 @functools.cache
-def card_warps(A: int, device_index=None) -> int:
-    """The one-warp blocks of forward_tiled's kernel for adapter width A
-    that card `device_index` (None: the current device) holds at once, as
-    its runtime reports them (the occupancy at the kernel's shared memory
-    times the SMs), read once per adapter width and device."""
+def card_warps(A: int, device_index=None, name='forward_tiled') -> int:
+    """The warps of kernel `name`'s one-lane-a-warp instantiation for
+    adapter width A (forward_tiled: one-warp blocks; forward_score and
+    forward_stats: four-warp blocks) that card `device_index` (None: the
+    current device) holds at once, as its runtime reports them (the
+    occupancy at the kernel's shared memory and registers times the SMs),
+    read once per kernel, adapter width and device."""
     if A > MAX_A:
         raise NotImplementedError(
-            'forward_tiled: adapters longer than %d bp are not supported by '
-            'the CUDA kernel' % MAX_A)
+            '%s: adapters longer than %d bp are not supported by the CUDA '
+            'kernel' % (name, MAX_A))
     n = ctypes.c_int(0)
     with _on(device_index):
-        rc = _lib('forward_tiled').warps(A, ctypes.byref(n))
+        rc = _lib(name).warps(A, ctypes.byref(n))
     if rc != 0 or n.value <= 0:
-        raise RuntimeError('forward_tiled: occupancy query failed with code '
-                           '%d (%d warps)' % (rc, n.value))
+        raise RuntimeError('%s: occupancy query failed with code %d (%d '
+                           'warps)' % (name, rc, n.value))
     return n.value
+
+
+# The narrow layouts of forward_score and forward_stats (csrc/dp_common.cuh,
+# three rows a thread): adapter widths (lo, hi], lanes a warp there, and
+# the instantiation's AMAX.  Rungs 16 and 24 take four lanes of 8 threads,
+# rung 48 two of 16; rung 32 has no padding rows to save.
+_NARROW = ((0, 24, 4, 24), (32, 48, 2, 48))
+# lane_group's threshold, a share of the card's one-lane-a-warp warps of the
+# kernel: on an H100 the narrow layout won at 0.86 of them and more at
+# every measured shape of both kernels and rungs (L = 150, 1,024, 10,240),
+# and lost at 0.65 and less for stats at rung 24, at 0.39 and less for the
+# others (time_kernels.py --layouts, PERF.md).
+NARROW_FROM = 0.75
+
+
+def narrow_group(A):
+    """The lanes a warp of the narrow layout for adapter width A, or None
+    where there is none."""
+    return next((g for lo, hi, g, _ in _NARROW if lo < A <= hi), None)
+
+
+def lane_group(name, B, A, device=None) -> int:
+    """Lanes a warp for a forward_score or forward_stats launch of B lanes
+    at adapter width A on `device` (a torch.device or index; None: the
+    current one): narrow_group(A) when B is at least NARROW_FROM of the
+    warps the card holds of the kernel's one-lane-a-warp instantiation
+    (card_warps), else 1.  A launch of fewer lanes is bound by its chain
+    of read_len + rows/R - 1 steps, which three rows a thread lengthen; one
+    of more is bound by issue, where narrow lanes compute no padding
+    rows."""
+    narrow = narrow_group(A)
+    if narrow is None:
+        return 1
+    warps = card_warps(A, getattr(device, 'index', device), name)
+    return narrow if B >= NARROW_FROM * warps else 1
+
+
+def wave_layout(A, group=1) -> str:
+    """The dp_wave_kernel instantiation that a launch at adapter width A
+    with `group` lanes a warp runs (csrc/dp_common.cuh launch), as
+    'AMAX/LW'."""
+    if group > 1:
+        amax = next(a for _, _, g, a in _NARROW if g == group)
+        return '%d/%d' % (amax, 32 // group)
+    return '%d/32' % min(a for a in (32, 64, 96, 128) if A <= a)
 
 
 def _launch(name, reads, read_lens, adapters, adapter_lens, ints, outs):
@@ -330,25 +392,28 @@ def tiled_l1p(L: int) -> int:
 # ---------------------------------------------------------------------------
 
 def forward_score(reads, read_lens, adapters, adapter_lens,
-                  match, mismatch, gap_open, gap_ext):
+                  match, mismatch, gap_open, gap_ext, group=None):
     """Best semi-global score per lane: (B,) int32.  reads (B, L) int8
-    codes 0..4, adapters (B, A) int8, lens (B,) int32."""
+    codes 0..4, adapters (B, A) int8, lens (B,) int32.  group: lanes a
+    warp on a card (None: lane_group's choice; a width refuses any other
+    than 1, 2 up to A = 48 and 4 up to A = 24)."""
     if not _check(reads, read_lens, adapters, adapter_lens):
         return forward_score_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
     B, L = reads.shape
     best = torch.empty(B, dtype=torch.int32, device=reads.device)
     if B:
-        _launch('forward_score', reads, read_lens, adapters, adapter_lens,
-                (B, L, adapters.shape[1], match, mismatch, gap_open,
-                 gap_ext), (best,))
+        _launch_wave('forward_score', reads, read_lens, adapters,
+                     adapter_lens, (match, mismatch, gap_open, gap_ext),
+                     group, (best,))
     return best
 
 
 def forward_stats(reads, read_lens, adapters, adapter_lens,
-                  match, mismatch, gap_open, gap_ext):
+                  match, mismatch, gap_open, gap_ext, group=None):
     """(best, cell_i, cell_j, matches, full_len), each (B,) int32, with the
-    free-tail terms of full_len applied (kernel_pallas.forward_stats_*)."""
+    free-tail terms of full_len applied (kernel_pallas.forward_stats_*).
+    group as forward_score's."""
     if not _check(reads, read_lens, adapters, adapter_lens):
         return forward_stats_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
@@ -356,10 +421,23 @@ def forward_stats(reads, read_lens, adapters, adapter_lens,
     outs = tuple(torch.empty(B, dtype=torch.int32, device=reads.device)
                  for _ in range(4))
     if B:
-        _launch('forward_stats', reads, read_lens, adapters, adapter_lens,
-                (B, L, adapters.shape[1], match, mismatch, gap_open,
-                 gap_ext), outs)
+        _launch_wave('forward_stats', reads, read_lens, adapters,
+                     adapter_lens, (match, mismatch, gap_open, gap_ext),
+                     group, outs)
     return _decode_stats(*outs, read_lens, adapter_lens)
+
+
+def _launch_wave(name, reads, read_lens, adapters, adapter_lens, scoring,
+                 group, outs):
+    """A forward_score or forward_stats launch with `group` lanes a warp
+    (None: lane_group's)."""
+    B, L = reads.shape
+    A = adapters.shape[1]
+    if group is None:
+        group = lane_group(name, B, A, reads.device)
+    _launch(name, reads, read_lens, adapters, adapter_lens,
+            (B, L, A, *scoring, group), outs)
+    WAVE_CALLS[(name, wave_layout(A, group))] += 1
 
 
 def forward_tiled(reads, read_lens, adapters, adapter_lens,

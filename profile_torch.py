@@ -22,7 +22,8 @@ the share in which two or more cards were busy at once, busy()).  A
 streamed run's phases 2 and 3 sum over its chunks; what the wall holds
 besides the phases (parsing, writing, text) is `other`.  It prints one
 JSON line per verbosity, with the launches of each kernel by shape
-and by card and the device's calls of every kind (memory copies
+and by card, score's and stats' by instantiation ('AMAX/LW',
+kernels.WAVE_CALLS), and the device's calls of every kind (memory copies
 included); the idle share is 1 - busy / the unprofiled wall.  The full
 profiler tables go to build/profile/<input>[_stream][_<device>]/.
 """
@@ -200,6 +201,8 @@ def main(argv=None):
         phase_walls['other'] = wall - sum(walls.values())
         launches = dict(kernels.LAUNCHES)
         tiled_calls = [[*k, n] for k, n in sorted(kernels.TILED_CALLS.items())]
+        wave_calls = [[*k, n] for k, n in
+                      sorted(kernels.WAVE_CALLS.items())]
         shape_calls = {k: [[*s_, n] for s_, n in sorted(c.items())]
                        for k, c in shapes.items()}
         peak_mib = {'cuda:%d' % k:
@@ -228,6 +231,7 @@ def main(argv=None):
             'verbosity': v, 'wall_s': wall, 'reads_per_s': n_reads / wall,
             'phase_wall_s': phase_walls, 'launches': launches,
             'tiled_calls_lanes_L_A_chunks_n': tiled_calls,
+            'wave_calls_kernel_layout_n': wave_calls,
             'score_calls_lanes_L_A_n': shape_calls['forward_score'],
             'stats_calls_lanes_L_A_n': shape_calls['forward_stats'],
             'peak_device_mib': max(peak_mib.values()),

@@ -1,8 +1,10 @@
 """What the port's multi-card checks and measurements compute, on the CPU:
-chip_smoke.py's per-card launch check, its count of the replay's launches
-and its check that the barcoded run's rung-96 trace-bit calls split, profile_torch.py's busy times and overlap from a profile's
-device events, and the card each rank of a multi-process run takes
-(multihost.rank_device).  Exact: counts and sums of integers."""
+chip_smoke.py's per-card launch check, its lane layouts of score and
+stats, its count of the replay's launches and its check that the barcoded
+run's rung-96 trace-bit calls split, profile_torch.py's busy times and
+overlap from a profile's device events, and the card each rank of a
+multi-process run takes (multihost.rank_device).  Exact: counts and sums
+of integers."""
 
 import collections
 import types
@@ -140,3 +142,18 @@ def test_rank_device_spreads_ranks_over_the_cards(monkeypatch, cards, want):
         monkeypatch.setattr(multihost, 'rank', lambda r=r: r)
         got.append(multihost.rank_device())
     assert got == [torch.device('cuda', k) for k in want]
+
+
+@pytest.mark.parametrize('name,A,want', [
+    ('forward_score', 24, (4, [1, 4])), ('forward_stats', 16, (4, [1, 4])),
+    ('forward_score', 48, (2, [1, 2])), ('forward_stats', 40, (2, [1, 2])),
+    ('forward_score', 32, (1, [1])), ('forward_stats', 64, (1, [1])),
+    ('forward_walk', 24, (1, [1])), ('forward_tiled', 48, (1, [1]))])
+def test_smoke_checks_both_layouts_of_the_narrow_rungs(monkeypatch, name, A,
+                                                       want):
+    """chip_smoke.layouts: score and stats at adapter rungs 16-24 and 48
+    are held in both layouts and timed in lane_group's; other widths and
+    the trace-bit kernels in one lane a warp."""
+    monkeypatch.setattr(kernels, 'lane_group',
+                        lambda name, B, A: kernels.narrow_group(A) or 1)
+    assert chip_smoke.layouts(kernels, name, 16384, A) == want

@@ -30,9 +30,11 @@ Tolerance: exact; every output is an integer.
 """
 
 import ctypes
+import math
 import re
 import shutil
 import subprocess
+import sys
 import types
 
 import numpy as np
@@ -83,7 +85,8 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 // The occupancy queries answer for an H100-like card: 132 SMs, 228 KB of
-// shared memory per SM with 1 KB reserved per block, at most 32 blocks.
+// shared memory per SM with 1 KB reserved per block, at most 32 blocks and
+// 64 warps.
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
@@ -95,9 +98,11 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
 }
 template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-    int* n, F, int, size_t smem) {
+    int* n, F, int threads, size_t smem) {
   const int by_smem = (int)(228 * 1024 / (smem + 1024));
+  const int by_warps = 64 / ((threads + 31) / 32);
   *n = by_smem < 32 ? by_smem : 32;
+  *n = *n < by_warps ? *n : by_warps;
   return cudaSuccess;
 }
 
@@ -160,16 +165,23 @@ void launch(K kern, const A& args, dim3 grid, dim3 block, int smem,
 }
 }  // namespace stub
 
-inline int __shfl_up_sync(unsigned, int v, unsigned d) {
+// The shuffles as CUDA defines them with a width: each segment of `width`
+// lanes reads within itself (and, for xor, from earlier segments); a source
+// outside it gives the caller its own value.
+inline int __shfl_up_sync(unsigned, int v, unsigned d, int width = 32) {
   const int lane = threadIdx.x % 32;
   const int* buf = stub::exchange(v);
-  return lane >= (int)d ? buf[lane - (int)d] : v;
+  return lane % width >= (int)d ? buf[lane - (int)d] : v;
 }
-inline int __shfl_xor_sync(unsigned, int v, int m) {
-  return stub::exchange(v)[(threadIdx.x % 32) ^ m];
+inline int __shfl_xor_sync(unsigned, int v, int m, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  const int src = lane ^ m;
+  const int* buf = stub::exchange(v);
+  return src < (lane / width + 1) * width ? buf[src] : v;
 }
-inline int __shfl_sync(unsigned, int v, int src) {
-  return stub::exchange(v)[src & 31];
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  return stub::exchange(v)[lane / width * width + (src & (width - 1))];
 }
 inline int __reduce_max_sync(unsigned, int v) {
   const int* buf = stub::exchange(v);
@@ -230,8 +242,11 @@ def host_kernels(tmp_path_factory):
     for proc in procs.values():
         out, _ = proc.communicate()
         assert proc.returncode == 0, out
-    return {name: kernels.bind(root / (src[:-3] + '.so'), name)
-            for name, src in kernels.SOURCES.items()}
+    fns = {}
+    for name, src in kernels.SOURCES.items():
+        fns[name] = kernels.bind(root / (src[:-3] + '.so'), name)
+        fns[name].library = root / (src[:-3] + '.so')
+    return fns
 
 
 def _run(fn, batch, ints, outs):
@@ -246,9 +261,9 @@ def _assert_match_plain(fns, batch, scheme):
     B, L = reads.shape
     A = adps.shape[1]
     score = torch.empty(B, dtype=torch.int32)
-    _run(fns['forward_score'], batch, (B, L, A, *scheme), (score,))
+    _run(fns['forward_score'], batch, (B, L, A, *scheme, 1), (score,))
     stats = [torch.empty(B, dtype=torch.int32) for _ in range(4)]
-    _run(fns['forward_stats'], batch, (B, L, A, *scheme), stats)
+    _run(fns['forward_stats'], batch, (B, L, A, *scheme, 1), stats)
     assert torch.equal(score, kernels.forward_score_plain(*batch, *scheme))
     for name, g, w in zip(('best', 'cell_i', 'cell_j', 'matches',
                            'full_len'), kernels._decode_stats(*stats, rl, al),
@@ -448,6 +463,252 @@ def test_host_source_rewrites_launch_and_shared_memory():
     got = _host_source(src)
     assert '<<<' not in got and '__shared__' not in got
     assert '::stub::launch(kern, p, grid, block, smem, stream);' in got
+
+
+# ---------------------------------------------------------------------------
+# Lanes narrower than a warp (score and stats: 4 lanes of 8 threads at
+# AMAX 24, 2 of 16 at AMAX 48)
+# ---------------------------------------------------------------------------
+
+# A shuffle that not every thread of a warp reaches leaves the stub's
+# std::barrier waiting forever, so each call of a sub-warp layout runs in a
+# child process of its own, cut after this many seconds; after one such
+# cut the later calls fail at once (_HUNG), so that a hang costs one limit,
+# not one a case.
+SUBWARP_TIMEOUT = 120
+_HUNG = []
+
+# The child: numpy and ctypes only.  argv: library, C function, file stem,
+# then the ints; inputs from <stem>.in.npz, outputs (started as junk) and
+# the return code to <stem>.out.npz.
+_CHILD = r"""
+import ctypes, sys
+import numpy as np
+lib, name, stem = sys.argv[1:4]
+ints = [int(x) for x in sys.argv[4:]]
+data = np.load(stem + '.in.npz')
+ins = [np.ascontiguousarray(data[k]) for k in ('reads', 'rl', 'adps', 'al')]
+outs = [np.full(len(ins[1]), -7, np.int32) for _ in range(int(data['n_out']))]
+fn = getattr(ctypes.CDLL(lib), 'pdp_' + name)
+fn.restype = ctypes.c_int
+rc = fn(*(ctypes.c_void_p(a.ctypes.data) for a in ins),
+        *(ctypes.c_int(x) for x in ints),
+        *(ctypes.c_void_p(o.ctypes.data) for o in outs), ctypes.c_void_p(None))
+np.savez(stem + '.out.npz', np.int32(rc), *outs)
+"""
+
+
+def _child_call(fn, name, batch, ints, n_out, stem):
+    """The host-built C function `fn` (pdp_<name>) on the batch in a child
+    process with its own time limit: its int32 outputs (B,) as tensors."""
+    if _HUNG:
+        pytest.fail('an earlier sub-warp call hung: %s' % _HUNG[0])
+    reads, rl, adps, al = (np.asarray(x) for x in batch)
+    np.savez('%s.in.npz' % stem, reads=reads, rl=rl, adps=adps, al=al,
+             n_out=n_out)
+    try:
+        r = subprocess.run([sys.executable, '-c', _CHILD, str(fn.library),
+                            name, str(stem), *(str(x) for x in ints)],
+                           capture_output=True, text=True,
+                           timeout=SUBWARP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _HUNG.append('%s %s' % (name, ints))
+        raise
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = np.load('%s.out.npz' % stem)
+    assert int(got['arr_0']) == 0, int(got['arr_0'])
+    return [torch.from_numpy(got['arr_%d' % k]) for k in range(1, n_out + 1)]
+
+
+def _subwarp(fns, batch, scheme, group, tmp_path):
+    """Score and stats of the batch with `group` lanes a warp, each in a
+    child: (best,), (best, cell_i, cell_j, matches, full_len)."""
+    reads, rl, adps, al = batch
+    B, L = reads.shape
+    ints = (B, L, adps.shape[1], *scheme, group)
+    score = _child_call(fns['forward_score'], 'forward_score', batch, ints, 1,
+                        tmp_path / 'score')
+    stats = _child_call(fns['forward_stats'], 'forward_stats', batch, ints, 4,
+                        tmp_path / 'stats')
+    return score, kernels._decode_stats(*stats, torch.as_tensor(rl),
+                                        torch.as_tensor(al))
+
+
+def _assert_subwarp_matches_plain(fns, batch, scheme, group, tmp_path):
+    batch = to_torch(*batch)
+    score, stats = _subwarp(fns, batch, scheme, group, tmp_path)
+    assert torch.equal(score[0], kernels.forward_score_plain(*batch, *scheme))
+    for name, g, w in zip(('best', 'cell_i', 'cell_j', 'matches',
+                           'full_len'), stats,
+                          kernels.forward_stats_plain(*batch, *scheme)):
+        assert torch.equal(g, w), name
+
+
+def _group_of(A):
+    return 4 if A <= 24 else 2
+
+
+@pytest.mark.parametrize('scheme', SCHEMES, ids=['default', '20,-30,-5,-2'])
+@pytest.mark.parametrize('A', [16, 20, 24, 33, 40, 48])
+def test_subwarp_lanes_match_plain(host_kernels, A, scheme, tmp_path):
+    """Score and stats at four lanes a warp (A = 16, 20, 24: AMAX 24, 6-8
+    threads holding rows) and two (A = 33, 40, 48: AMAX 48, 11-16), on
+    _edge_batch's lanes and one more: 13 lanes, not a multiple of either,
+    the last warp's other lanes past B; exact against the plain
+    versions."""
+    batch = _edge_batch(A, 600, A, LENS + [37])
+    _assert_subwarp_matches_plain(host_kernels, batch, scheme, _group_of(A),
+                                  tmp_path)
+
+
+@pytest.mark.parametrize('A', [24, 48])
+def test_subwarp_lanes_match_pallas(host_kernels, A, tmp_path):
+    """128 lanes of 150 bp windows at A = 24 (four lanes a warp) and 48
+    (two) against the JAX Pallas kernels in interpret mode: score and stats
+    lane-major (_score_kernel, _stats_kernel) and transposed
+    (_score_kernel_t, _stats_kernel_t, as detection runs them)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from porechop_tpu.ops import kernel_pallas
+    batch = dp_batch(120 + A, 128, 150, A)
+    score, stats = _subwarp(host_kernels, to_torch(*batch), SCHEME,
+                            _group_of(A), tmp_path)
+    with pltpu.force_tpu_interpret_mode():
+        want_score = [kernel_pallas.forward_score_pallas(*batch, *SCHEME),
+                      kernel_pallas.forward_score_pallas_t(*batch, *SCHEME)]
+        want_stats = [kernel_pallas.forward_stats_pallas(*batch, *SCHEME),
+                      kernel_pallas.forward_stats_pallas_t(*batch, *SCHEME)]
+    for w in want_score:
+        assert np.array_equal(score[0].numpy(), np.asarray(w))
+    for w in want_stats:
+        for name, g, x in zip(('best', 'cell_i', 'cell_j', 'matches',
+                               'full_len'), stats, w):
+            assert np.array_equal(g.numpy(), np.asarray(x)), name
+
+
+def _ragged_batch(case, A):
+    """Lanes whose warps are ragged at four lanes a warp (A <= 24) and at
+    two: 'read lengths' mixes 0, 1, 37 and 150 with lanes of 1,100 and
+    1,030 bp that span two SCAN_T tiles (10 lanes, the last warp part past
+    B); 'adapter lengths' mixes A, 1, A / 2, 0 and A - 1 in each warp;
+    'past B' is 5 lanes (four a warp) or 3 (two), so that whole warps of
+    the block lie past B.  Some lanes carry their adapter."""
+    L = 1100
+    lens = {'read lengths': [0, 1, 37, 150, L, 1, 37, 0, 1030, 150],
+            'adapter lengths': [150, 149, 148, 151, 600, 37, 150, 150],
+            'past B': [150, 37, 150, 1, 90][:5 if A <= 24 else 3]}[case]
+    reads, rl, adps, al = dp_batch(130 + A + len(lens), len(lens), L, A)
+    rl[:] = lens
+    if case == 'adapter lengths':
+        al[:] = np.resize([A, 1, A // 2, 0, A - 1], len(lens))
+    else:
+        al[:] = np.resize([A, A - 3, A // 2 + 1], len(lens))
+    for k in range(len(lens)):
+        if rl[k] > al[k] + 10 and k % 2 == 0:
+            plant(reads, adps, al, k, int(rl[k]) - 3 - k)
+    return reads, rl, adps, al
+
+
+@pytest.mark.parametrize('case', ['read lengths', 'adapter lengths',
+                                  'past B'])
+@pytest.mark.parametrize('A', [24, 48])
+def test_subwarp_ragged_warps(host_kernels, A, case, tmp_path):
+    """Warps whose lanes end at different columns and rows, or lie past B:
+    every lane's loops run to its warp's bounds with its own cells masked,
+    and the result equals the plain versions exactly."""
+    _assert_subwarp_matches_plain(host_kernels, _ragged_batch(case, A),
+                                  SCHEME, _group_of(A), tmp_path)
+
+
+@pytest.mark.parametrize('A,group', [(25, 4), (49, 2), (20, 3), (129, 1),
+                                     (30, 8)])
+def test_subwarp_refused_groups(host_kernels, A, group):
+    """A group the width does not allow (four lanes past 24 rows, two past
+    48, three, eight) or a width past 128 returns an error code before
+    any launch; the wrapper raises on it."""
+    batch = to_torch(*dp_batch(5, 4, 60, A))
+    for name, n_out in (('forward_score', 1), ('forward_stats', 4)):
+        outs = [torch.empty(4, dtype=torch.int32) for _ in range(n_out)]
+        rc = host_kernels[name](*(x.data_ptr() for x in batch), 4, 60, A,
+                                *SCHEME, group,
+                                *(o.data_ptr() for o in outs), None)
+        assert rc == (100000 if A > 128 else 100004), rc
+
+
+def test_wrapper_raises_for_a_refused_group(host_kernels, monkeypatch):
+    monkeypatch.setattr(kernels, '_check', lambda *args: True)
+    monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    batch = to_torch(*dp_batch(6, 4, 60, 40))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match='100004'):
+        kernels.forward_score(*batch, *SCHEME, group=4)
+    with pytest.raises(RuntimeError, match='100004'):
+        kernels.forward_stats(*batch, *SCHEME, group=3)
+    assert kernels.LAUNCHES['forward_score'] == 0
+    assert kernels.LAUNCHES['forward_stats'] == 0
+
+
+@pytest.mark.parametrize('name', ['forward_score', 'forward_stats'])
+@pytest.mark.parametrize('A', [16, 24, 48, 64, 96, 128])
+def test_wave_warps_query_the_one_lane_instantiation(host_kernels, name, A):
+    """pdp_score_warps and pdp_stats_warps ask the occupancy query for the
+    one-lane-a-warp instantiation that serves A (four-warp blocks): the
+    stub's H100-like card holds 16 of them an SM, 8,448 warps; past 128
+    rows the query refuses."""
+    n = ctypes.c_int(0)
+    assert host_kernels[name].warps(A, ctypes.byref(n)) == 0
+    assert n.value == 132 * 64
+    assert host_kernels[name].warps(129, ctypes.byref(n)) != 0
+
+
+def test_lane_group_reads_the_card(host_kernels, monkeypatch):
+    """lane_group takes the narrow layout for widths up to 24 (four lanes)
+    and 33-48 (two) once a launch holds at least NARROW_FROM of the card's
+    one-lane-a-warp warps of that kernel (the stub's 8,448), one lane a
+    warp otherwise, at 25-32 and past 48; the wrappers launch with its
+    choice unless given one."""
+    monkeypatch.setattr(kernels, '_lib', host_kernels.__getitem__)
+    kernels.card_warps.cache_clear()
+    try:
+        for name in ('forward_score', 'forward_stats'):
+            warps = kernels.card_warps(24, None, name)
+            assert warps == 132 * 64
+            least = math.ceil(kernels.NARROW_FROM * warps)
+            for B, A, want in ((least, 16, 4), (least, 24, 4), (warps, 25, 1),
+                               (warps, 32, 1), (least, 33, 2),
+                               (warps, 48, 2), (warps, 49, 1),
+                               (warps, 96, 1), (least - 1, 24, 1),
+                               (least - 1, 48, 1), (4 * warps, 20, 4)):
+                assert kernels.lane_group(name, B, A) == want, (name, B, A)
+        seen = []
+        monkeypatch.setattr(kernels, '_check', lambda *args: True)
+        monkeypatch.setattr(kernels, '_launch',
+                            lambda name, *args: seen.append((name,
+                                                             args[-2][-1])))
+        big = [torch.zeros((warps, 1), dtype=torch.int8), torch.zeros(
+            warps, dtype=torch.int32), torch.zeros((warps, 40),
+                                                    dtype=torch.int8),
+               torch.zeros(warps, dtype=torch.int32)]
+        kernels.forward_score(*big, *SCHEME)
+        kernels.forward_stats(*big, *SCHEME)
+        kernels.forward_score(*big, *SCHEME, group=1)
+        kernels.forward_stats(*(x[:8] for x in big), *SCHEME)
+    finally:
+        kernels.card_warps.cache_clear()
+    assert seen == [('forward_score', 2), ('forward_stats', 2),
+                    ('forward_score', 1), ('forward_stats', 1)]
+
+
+def test_wave_layout_names_the_instantiation():
+    assert [kernels.narrow_group(A) for A in (1, 16, 24, 25, 32, 33, 48,
+                                              49, 96)] == [
+        4, 4, 4, None, None, 2, 2, None, None]
+    assert [kernels.wave_layout(A, g) for A, g in (
+        (16, 4), (24, 4), (40, 2), (48, 2), (20, 1), (48, 1), (80, 1),
+        (100, 1))] == ['24/8', '24/8', '48/16', '48/16', '32/32', '64/32',
+                       '96/32', '128/32']
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import collections
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -81,7 +82,7 @@ def _kernels_match_plain(card, batch):
     return got, want
 
 
-@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
+@pytest.mark.parametrize('A', [20, 24, 40, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 @pytest.mark.parametrize('ntiles', [1, 2, 3])
 def test_forward_tiled_matches_plain(card, A, ntiles):
     """The column-tiled kernel against its plain version over 1, 2 and 3
@@ -109,7 +110,7 @@ def test_forward_tiled_matches_plain(card, A, ntiles):
         assert torch.equal(bits[:rows, k, :cols], want[0][:rows, k, :cols]), k
 
 
-@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
+@pytest.mark.parametrize('A', [20, 24, 40, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 @pytest.mark.parametrize('ntiles', [1, 2, 3])
 def test_score_and_stats_match_plain(card, A, ntiles):
     """The wavefront score and stats kernels against their plain versions
@@ -138,7 +139,45 @@ def test_score_and_stats_match_plain(card, A, ntiles):
                                 'walk': 0}
 
 
-@pytest.mark.parametrize('A', [24, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
+@pytest.mark.parametrize('where', ['below', 'above'])
+@pytest.mark.parametrize('A', [20, 24, 40, 48])
+def test_score_and_stats_layouts_match_plain(card, A, where):
+    """Adapter rungs 24 and 48 in every layout on the card: ragged lanes
+    of two SCAN_T tiles (read lengths 0 to L, adapter lengths 0 to A), B
+    just below lane_group's threshold (kernels.NARROW_FROM of the card's
+    one-lane-a-warp warps of each kernel) or 3 above those warps (a
+    multiple of neither 2 nor 4); forward_score and forward_stats
+    with one lane a warp, with four (A <= 24) or two lanes a warp, and with
+    lane_group's choice, which is the narrow layout above and one lane
+    below; each exact against the plain version, computed on the card."""
+    narrow = 4 if A <= 24 else 2
+    for name in ('forward_score', 'forward_stats'):
+        warps = kernels.card_warps(A, card.index, name)
+        least = math.ceil(kernels.NARROW_FROM * warps)
+        B = least - 1 if where == 'below' else warps + 3
+        assert kernels.lane_group(name, B, A, card) == (
+            narrow if where == 'above' else 1)
+        L = 1100
+        reads, rl, adps, al = dp_batch(90 + A, B, L, A)
+        rng = np.random.default_rng(A)
+        rl[:] = rng.integers(0, L + 1, B)
+        rl[:8] = 0, 1, 37, 150, L, 1030, 0, 1
+        al[:] = rng.integers(0, A + 1, B)
+        dev = [t.to(card) for t in to_torch(reads, rl, adps, al)]
+        want = getattr(kernels, name + '_plain')(*dev, *SCHEME)
+        kern = getattr(kernels, name)
+        kernels.reset_launches()
+        for group in (1, narrow, None):
+            got = kern(*dev, *SCHEME, group=group)
+            if name == 'forward_score':
+                assert torch.equal(got, want), group
+            else:
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), group
+        assert kernels.LAUNCHES[name] == 3
+
+
+@pytest.mark.parametrize('A', [20, 24, 40, 48, 80, 96, 100])  # AMAX 32, 64, 96, 128
 def test_forward_tiled_splits_few_lanes(card, A):
     """Eight lanes of a 40 kb window: the wrapper cuts each into the column
     chunks of split_plan (its shape record says how many), and the result
