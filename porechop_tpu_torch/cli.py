@@ -18,14 +18,24 @@ Other schemes, and launches too small to pay for a card, run on the host
 and no card is looked for.
 
 Instruments, read when main runs (the JAX package's switches):
-PORECHOP_TPU_TIMING=1 prints the in-memory run's phase walls on stderr
-(`[timing] phase <label> <s>`: load, detect, endtrim, middle, output),
-and the planner its own `[timing]` lines; PORECHOP_TPU_PROFILE=<dir>
-runs the pipeline under torch.profiler and writes one Chrome trace JSON
-into <dir>; PORECHOP_TPU_LOAD_STATS=<path> makes each rank of a
-multi-process run write what it parsed (parallel/multihost.py).  main
-also applies the allocator tuning (utils/malloc_tune.py;
-PORECHOP_TPU_NO_MALLOC_TUNE=1 opts out).
+PORECHOP_TPU_TIMING=1 prints the phase walls on stderr (`[timing] phase
+<label> <s>`: load, detect, endtrim, middle, output; a --stream run
+prints the five summed over its chunks after its last one), and the
+planner its own `[timing]` lines.  It also turns on the in-program
+recorder (utils/spans.py) for the call: the phases as spans, the
+planner's host work, copies, launches and waits on the card as spans
+nested in them, a record of every kernel launch with the cells its lanes
+need, and the resident set size at each phase's end; at the call's end
+(also a failed one) one record joins the buffer that
+utils.spans.last_jobs(n) reads, and stderr gets `[spans] job <id> ...`
+lines: its wall, each phase (with the RSS), each span name's self time
+and count, and its launches and cells.  PORECHOP_TPU_PROFILE=<dir> runs
+the pipeline under torch.profiler and writes one Chrome trace JSON into
+<dir> (with the switch above, the spans as ranges in it);
+PORECHOP_TPU_LOAD_STATS=<path> makes each rank of a multi-process run
+write what it parsed (parallel/multihost.py).  main also applies the
+allocator tuning (utils/malloc_tune.py; PORECHOP_TPU_NO_MALLOC_TUNE=1
+opts out).
 """
 
 import argparse
@@ -52,7 +62,7 @@ from .pipeline.phases import (add_full_barcode_adapter_sets,
                               print_detection_block, print_end_trim_block,
                               print_end_trim_header, print_middle_block,
                               trim_counts)
-from .utils import malloc_tune
+from .utils import malloc_tune, spans
 from .utils.text import TrimmerHelpFormatter, bold_underline
 from .version import __version__
 
@@ -62,15 +72,22 @@ def main(argv=None, device=None):
     its name, or a list of device entries, as a list or comma-separated);
     default the --device flag, else the local CUDA cards."""
     malloc_tune.configure()
-    args = get_arguments(argv)
-    profile_dir = os.environ.get('PORECHOP_TPU_PROFILE')
-    prof = _start_profile() if profile_dir else None
+    spans.begin_job(timing())
+    ok = False
     try:
-        _run_pipeline(args, device if device is not None else args.device)
+        args = get_arguments(argv)
+        profile_dir = os.environ.get('PORECHOP_TPU_PROFILE')
+        prof = _start_profile() if profile_dir else None
+        try:
+            _run_pipeline(args, device if device is not None
+                          else args.device)
+        finally:
+            if prof is not None:
+                _write_profile(prof, profile_dir)
+        multihost.finish()
+        ok = True
     finally:
-        if prof is not None:
-            _write_profile(prof, profile_dir)
-    multihost.finish()
+        spans.end_job(ok)
 
 
 def _start_profile():
@@ -94,15 +111,12 @@ def _write_profile(prof, profile_dir):
         profile_dir, 'trace.%d.%d.json' % (os.getpid(), time.time_ns())))
 
 
-def _mark(label, t0):
+def _mark(label, seconds):
     """The PORECHOP_TPU_TIMING phase-wall line (porechop_tpu/cli.py
-    _mark); returns a fresh t0.  Each mark follows a phase whose results
-    are on the host already, so none needs a synchronise."""
-    if timing():
-        print('[timing] phase %-10s %.3fs' % (label,
-                                              time.perf_counter() - t0),
-              file=sys.stderr, flush=True)
-    return time.perf_counter()
+    _mark), the exporter of the phase spans.  Each phase ends with its
+    results on the host already, so none needs a synchronise."""
+    print('[timing] phase %-10s %.3fs' % (label, seconds), file=sys.stderr,
+          flush=True)
 
 
 def _run_pipeline(args, device_name):
@@ -130,64 +144,66 @@ def _run_pipeline(args, device_name):
     # re-emits the full reference transcript: at -v 1 from global
     # counters, at -v >= 2 with the per-read dumps gathered from all ranks
     # in read order.
-    t0 = time.perf_counter()
-    if mh:
-        reads, check_reads, read_type, n_total, n_check = \
-            multihost.load_reads_block(args.input, args.verbosity,
-                                       args.print_dest, args.check_reads)
-    else:
-        reads, check_reads, read_type = load_reads(args.input,
-                                                   args.verbosity,
-                                                   args.print_dest,
-                                                   args.check_reads)
-        n_check = len(check_reads)
-    t0 = _mark('load', t0)
-    matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
-        args, check_reads, n_check, device, mh)
-    t0 = _mark('detect', t0)
+    with spans.phase('load', _mark):
+        if mh:
+            reads, check_reads, read_type, n_total, n_check = \
+                multihost.load_reads_block(args.input, args.verbosity,
+                                           args.print_dest, args.check_reads)
+        else:
+            reads, check_reads, read_type = load_reads(args.input,
+                                                       args.verbosity,
+                                                       args.print_dest,
+                                                       args.check_reads)
+            n_check = len(check_reads)
+    with spans.phase('detect', _mark):
+        matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
+            args, check_reads, n_check, device, mh)
     phase_verbosity = 0 if mh else args.verbosity
 
     if matching_sets:
-        check_barcodes = (args.barcode_dir is not None)
-        dumps2 = find_adapters_at_read_ends(
-            reads, matching_sets, phase_verbosity,
-            args.end_size, args.extra_end_trim, args.end_threshold,
-            args.scoring_scheme_vals, args.print_dest, args.min_trim_size,
-            args.threads, check_barcodes, args.barcode_threshold,
-            args.barcode_diff, args.require_two_barcodes,
-            forward_or_reverse_barcodes, device=device,
-            collect_dumps=args.verbosity if mh else 0)
-        display_read_end_trimming_summary(reads, phase_verbosity,
-                                          args.print_dest)
-        t0 = _mark('endtrim', t0)
-        dumps3 = []
-        if not args.no_split:
-            dumps3 = find_adapters_in_read_middles(
+        with spans.phase('endtrim', _mark):
+            check_barcodes = (args.barcode_dir is not None)
+            dumps2 = find_adapters_at_read_ends(
                 reads, matching_sets, phase_verbosity,
-                args.middle_threshold, args.extra_middle_trim_good_side,
-                args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
-                args.print_dest, args.threads, args.discard_middle,
+                args.end_size, args.extra_end_trim, args.end_threshold,
+                args.scoring_scheme_vals, args.print_dest,
+                args.min_trim_size, args.threads, check_barcodes,
+                args.barcode_threshold, args.barcode_diff,
+                args.require_two_barcodes, forward_or_reverse_barcodes,
                 device=device, collect_dumps=args.verbosity if mh else 0)
-            display_read_middle_trimming_summary(reads, args.discard_middle,
-                                                 phase_verbosity,
-                                                 args.print_dest)
-        if mh:
-            _print_phase_text(args, matching_sets, trim_counts(reads),
-                              n_total, dumps2, dumps3)
-    elif args.verbosity > 0:
-        print('No adapters found - output reads are unchanged from input reads\n',
-              file=args.print_dest)
-
-    t0 = _mark('middle', t0)
-    if mh:
-        multihost.output_and_merge(reads, args, read_type)
+            display_read_end_trimming_summary(reads, phase_verbosity,
+                                              args.print_dest)
+        with spans.phase('middle', _mark):
+            dumps3 = []
+            if not args.no_split:
+                dumps3 = find_adapters_in_read_middles(
+                    reads, matching_sets, phase_verbosity,
+                    args.middle_threshold, args.extra_middle_trim_good_side,
+                    args.extra_middle_trim_bad_side,
+                    args.scoring_scheme_vals, args.print_dest, args.threads,
+                    args.discard_middle, device=device,
+                    collect_dumps=args.verbosity if mh else 0)
+                display_read_middle_trimming_summary(
+                    reads, args.discard_middle, phase_verbosity,
+                    args.print_dest)
+            if mh:
+                _print_phase_text(args, matching_sets, trim_counts(reads),
+                                  n_total, dumps2, dumps3)
     else:
-        output_reads(reads, args.format, args.output, read_type,
-                     args.verbosity, args.discard_middle,
-                     args.min_split_read_size, args.print_dest,
-                     args.barcode_dir, args.input, args.untrimmed,
-                     args.threads, args.discard_unassigned)
-    _mark('output', t0)
+        with spans.phase('middle', _mark):
+            if args.verbosity > 0:
+                print('No adapters found - output reads are unchanged '
+                      'from input reads\n', file=args.print_dest)
+
+    with spans.phase('output', _mark):
+        if mh:
+            multihost.output_and_merge(reads, args, read_type)
+        else:
+            output_reads(reads, args.format, args.output, read_type,
+                         args.verbosity, args.discard_middle,
+                         args.min_split_read_size, args.print_dest,
+                         args.barcode_dir, args.input, args.untrimmed,
+                         args.threads, args.discard_unassigned)
 
 
 def _find_adapter_sets(args, check_reads, n_check, device, mh):
@@ -262,27 +278,35 @@ def _run_streaming_pipeline(args, chunk_size, device, mh):
     Multi-process: each rank streams only its contiguous record block into
     a part, detection runs on its slice of the sample with the stats
     merged across ranks, and rank 0 merges the parts and prints the
-    transcript from counters summed over ranks."""
-    read_type = stream_mod.input_read_type(args.input)
-    n_total = None
-    if mh or args.verbosity > 0:
-        n_total = stream_mod.count_records(args.input)
-    if args.verbosity > 0:
-        stream_mod.print_load_text(args.input, args.print_dest, total=n_total)
-    check_range = None
-    if mh:
-        _, n_check = stream_mod.collect_check_reads(
-            args.input, args.check_reads, record_range=(0, 0))
-        check_range = multihost.block_slice(n_check)
-    check_reads, n_check = stream_mod.collect_check_reads(
-        args.input, args.check_reads, record_range=check_range)
-    matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
-        args, check_reads, n_check, device, mh)
+    transcript from counters summed over ranks.
+
+    The phase spans: load (the counting pre-pass, the sample and each
+    chunk's parse), detect, and per chunk endtrim, middle and output (its
+    write; the transcript and the files' closing after the last chunk)."""
+    with spans.phase('load'):
+        read_type = stream_mod.input_read_type(args.input)
+        n_total = None
+        if mh or args.verbosity > 0:
+            n_total = stream_mod.count_records(args.input)
+        if args.verbosity > 0:
+            stream_mod.print_load_text(args.input, args.print_dest,
+                                       total=n_total)
+        check_range = None
+        if mh:
+            _, n_check = stream_mod.collect_check_reads(
+                args.input, args.check_reads, record_range=(0, 0))
+            check_range = multihost.block_slice(n_check)
+        check_reads, n_check = stream_mod.collect_check_reads(
+            args.input, args.check_reads, record_range=check_range)
+    with spans.phase('detect'):
+        matching_sets, forward_or_reverse_barcodes = _find_adapter_sets(
+            args, check_reads, n_check, device, mh)
     if not mh:
         stream_mod.run_streaming(args, matching_sets,
                                  forward_or_reverse_barcodes, read_type,
                                  chunk_size, total_reads=n_total,
                                  device=device)
+        _mark_phase_sums()
         return
 
     block = multihost.block_slice(n_total)
@@ -311,6 +335,16 @@ def _run_streaming_pipeline(args, chunk_size, device, mh):
 
     multihost.write_block_and_merge(args, read_type, write_block,
                                     pre_merge_hook=phase_text)
+    _mark_phase_sums()
+
+
+def _mark_phase_sums():
+    """A --stream run's five phase lines, each phase summed over the
+    run's chunks (pipeline/stream.py records them per chunk)."""
+    sums = spans.phase_seconds()
+    if sums is not None:
+        for label in spans.PHASES:
+            _mark(label, sums.get(label, 0.0))
 
 
 def get_arguments(argv=None):

@@ -34,7 +34,10 @@ PORECHOP_TPU_ENGINE=v1 sends every device chunk through the stat-carrying
 engine (ops/engine_v1.run_jobs) on the first device entry.
 PORECHOP_TPU_TIMING=1 prints the planner's `[timing]` lines on stderr, in
 the JAX package's words: prefilter survivors, launches enqueued and
-harvested (padded cells/s), the work share and native batches.
+harvested (padded cells/s), the work share and native batches; inside a
+CLI job it also records the planner's spans (utils/spans.py: `plan`
+around the public run methods, `host_route`, and through
+mesh.launch_shards `upload` and `enqueue`; `wait` at every copy back).
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
 only decides whether the kernels or their plain versions run.
@@ -60,6 +63,7 @@ import torch
 
 from .. import native
 from ..parallel import mesh
+from ..utils import spans
 from . import engine_v1, engine_v2, kernels, spec
 
 # Window-length ladder: fine-grained at the small end (end windows), then
@@ -297,8 +301,15 @@ def seqan_pct_vec(matches: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return out
 
 
+def _cpu(t) -> torch.Tensor:
+    """t copied to the host, which waits for the card's work that makes
+    it."""
+    with spans.span('wait'):
+        return t.cpu()
+
+
 def _host(t) -> np.ndarray:
-    return t.cpu().numpy().astype(np.int64)
+    return _cpu(t).numpy().astype(np.int64)
 
 
 class AlignJobs:
@@ -333,6 +344,7 @@ class AlignJobs:
     # election key needs full_len < 4096).
     _GROUP_MAX_RUNG = 1536
 
+    @spans.timed('plan')
     def run_group_max(self, group_ids, n_groups, progress=None) -> dict:
         """Group-reduced execution: per group, the best exact identity
         fraction matches/full_len over its jobs (the detection phase's
@@ -374,6 +386,7 @@ class AlignJobs:
         return {'matches': gacc[:, 0], 'full_len': gacc[:, 1],
                 'full_pct': seqan_pct_vec(gacc[:, 0], gacc[:, 1])}
 
+    @spans.timed('plan')
     def run_group_score_max(self, group_ids, n_groups, progress=None):
         """Per-group max raw score (the detection phase's prefilter pass):
         the score-only kernel plus an on-device group max.  Returns a
@@ -404,6 +417,7 @@ class AlignJobs:
                           res['raw_score'][rest[ok]])
         return gsacc
 
+    @spans.timed('plan')
     def run_stats(self, progress=None, prefilter=None) -> dict:
         """Percent-identity-only execution: returns {'matches', 'full_len',
         'full_pct'} of shape (P,) and skips coordinate recovery entirely
@@ -484,6 +498,7 @@ class AlignJobs:
         return {'matches': matches, 'full_len': full_len,
                 'full_pct': full_pct}
 
+    @spans.timed('plan')
     def run(self, progress=None) -> dict:
         """Executes all jobs; returns dict of (P,) arrays:
         read_start, read_end_excl, full_pct, partial_pct, plus the raw
@@ -492,8 +507,8 @@ class AlignJobs:
 
         progress: optional callable(job_indices) invoked as groups of jobs
         resolve (degenerate fixes, each chunk harvest, the native batch)."""
-        if progress is None:
-            progress = _noop_progress
+        progress = spans.outside(_noop_progress if progress is None
+                                 else progress)
         P = len(self.pairs)
         fields = ('read_start', 'read_end', 'adapter_start', 'adapter_end',
                   'raw_score', 'matches', 'aligned_len', 'full_len')
@@ -807,6 +822,7 @@ class AlignJobs:
                   'run on the device' % (why, len(todo)), file=sys.stderr)
         return res
 
+    @spans.timed('host_route')
     def _host_batch(self, todo, n_threads=None):
         """The jobs `todo` on the host route (schemes the kernels refuse,
         PORECHOP_TPU_FORCE_HOST; porechop_tpu/ops/dispatch.py:891-989):
@@ -928,7 +944,8 @@ class AlignJobs:
                     tables[key] = tuple(t.to(dev) for t in host)
             return tables[('w', lb, dev)] + tables[('a', amax, dev)]
         shards = mesh.launch_shards(kind, self.devices, on, w_idx, a_idx,
-                                    self.scoring, groups)
+                                    self.scoring, groups,
+                                    lens=(wlen_host, alen_host))
         return kind, shards, (wlen_host[w_idx[:B]], alen_host[a_idx[:B]])
 
     def _harvest(self, chunk, handle, out):
@@ -938,7 +955,7 @@ class AlignJobs:
         B = len(chunk)
 
         def to_np(t):
-            return t.cpu().numpy()
+            return _cpu(t).numpy()
 
         def cat(k, host=_host):
             return np.concatenate([host(h[k]) for h in shards])[:B]

@@ -74,6 +74,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import spans
 from .spec import NEG
 
 # L + 1 bound of the JAX package's single-tile kernels.  The planner keeps
@@ -99,7 +100,9 @@ MIN_CHUNK_WARMS = 8
 PART_INTS = 5              # ints per (chunk, lane) partial scout (csrc/)
 
 # Launches of each kernel since the counter was last reset.  A wrapper adds
-# one where it launches its kernel, and nowhere else.
+# one where it launches its kernel, and nowhere else.  (While a traced CLI
+# job runs, utils/spans.py also keeps a record of every entry-point call,
+# the plain versions' included: _note.)
 LAUNCHES = {'forward_score': 0, 'forward_stats': 0, 'forward_tiled': 0,
             'forward_walk': 0, 'walk': 0}
 # The same by (kernel, device), e.g. ('forward_tiled', 'cuda:1'), reset with
@@ -361,6 +364,12 @@ def _call(name, ins, ints, outs):
     DEVICE_LAUNCHES[(name, str(dev))] += 1
 
 
+def _note(name, reads, adapters, inst):
+    """The launch record of an entry-point call (utils/spans.launch)."""
+    spans.launch(name, reads.device, inst, reads.shape[0], reads.shape[1],
+                 adapters.shape[1])
+
+
 def _check(reads, read_lens, adapters, adapter_lens):
     if reads.dim() != 2:
         raise ValueError('reads must be (B, L), got %s' % (reads.shape,))
@@ -398,6 +407,7 @@ def forward_score(reads, read_lens, adapters, adapter_lens,
     warp on a card (None: lane_group's choice; a width refuses any other
     than 1, 2 up to A = 48 and 4 up to A = 24)."""
     if not _check(reads, read_lens, adapters, adapter_lens):
+        _note('forward_score', reads, adapters, 'plain')
         return forward_score_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
     B, L = reads.shape
@@ -415,6 +425,7 @@ def forward_stats(reads, read_lens, adapters, adapter_lens,
     free-tail terms of full_len applied (kernel_pallas.forward_stats_*).
     group as forward_score's."""
     if not _check(reads, read_lens, adapters, adapter_lens):
+        _note('forward_stats', reads, adapters, 'plain')
         return forward_stats_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
     B, L = reads.shape
@@ -438,6 +449,7 @@ def _launch_wave(name, reads, read_lens, adapters, adapter_lens, scoring,
     _launch(name, reads, read_lens, adapters, adapter_lens,
             (B, L, A, *scoring, group), outs)
     WAVE_CALLS[(name, wave_layout(A, group))] += 1
+    _note(name, reads, adapters, wave_layout(A, group))
 
 
 def forward_tiled(reads, read_lens, adapters, adapter_lens,
@@ -451,6 +463,7 @@ def forward_tiled(reads, read_lens, adapters, adapter_lens,
     takes forward_walk.  The kernel cuts each lane into the column chunks
     of split_plan."""
     if not _check(reads, read_lens, adapters, adapter_lens):
+        _note('forward_tiled', reads, adapters, 'plain')
         return forward_tiled_plain(reads, read_lens, adapters, adapter_lens,
                                    match, mismatch, gap_open, gap_ext)
     out = _trace_bits('forward_tiled', reads, read_lens, adapters,
@@ -471,6 +484,7 @@ def forward_walk(reads, read_lens, adapters, adapter_lens,
     every window up to 255 bp) walks from shared memory and allocates no
     trace bits.  The trimming path's one trace-bit call."""
     if not _check(reads, read_lens, adapters, adapter_lens):
+        _note('forward_walk', reads, adapters, 'plain')
         return forward_walk_plain(reads, read_lens, adapters, adapter_lens,
                                   match, mismatch, gap_open, gap_ext)
     _, best, ci, cj, _, _, walk = _trace_bits(
@@ -507,6 +521,7 @@ def _trace_bits(name, reads, read_lens, adapters, adapter_lens, scoring):
                 (B, L, A, L1p, *scoring, chunk, warm),
                 outs if walk is None else outs + (walk,))
         TILED_CALLS[(B, L, A, nch)] += 1
+        _note(name, reads, adapters, wave_layout(A))
     # The kernel writes each flag as 0 or 1, a valid bool byte.
     return bits, best, ci, cj, vf, hf, walk
 
@@ -526,13 +541,22 @@ def walk(bits, cell_i, cell_j, vflag, hflag):
     the kernel trusts cell_i <= A and cell_j < L1p, as forward_tiled makes
     them: checking values on the card would wait for it."""
     if not _check_walk(bits, cell_i, cell_j, vflag, hflag):
+        _note_walk(bits, 'plain')
         return walk_plain(bits, cell_i, cell_j, vflag, hflag)
     B = bits.shape[1]
     out = torch.empty((B, WALK_OUTS), dtype=torch.int32, device=bits.device)
     if B:
         _call('walk', (bits, cell_i, cell_j, vflag, hflag),
               (B, bits.shape[2]), (out,))
+        _note_walk(bits, 'walk')
     return out
+
+
+def _note_walk(bits, inst):
+    """The launch record of a walk call: its lanes at (L1p - 1) x A, with
+    no needed cells (the walk reads no lengths)."""
+    A, B, L1p = bits.shape
+    spans.launch('walk', bits.device, inst, B, L1p - 1, A)
 
 
 def _check_walk(bits, cell_i, cell_j, vflag, hflag):

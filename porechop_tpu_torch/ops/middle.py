@@ -13,7 +13,9 @@ The masked code tensor stays resident on the device across rounds: the
 reads of the replay set upload once, and each round ships only (adapter
 row, mask_start, mask_end) per lane; the mask is an in-place masked_fill_
 on the device tensor before the trace-bit forward and walk.
-`h2d_read_bytes` and `h2d_round_bytes` count every upload.
+`h2d_read_bytes` and `h2d_round_bytes` count every upload.  Inside a
+traced CLI job (utils/spans.py) the runner's host work is `plan`, its
+copies `upload` and `wait`, and each launch `enqueue`.
 
 A round's trace bits take A x lanes x L1p bytes, so the replay set is cut
 into launches under the planner's bits budget (dispatch.bits_lanes): lanes
@@ -38,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import dispatch, engine_v2, kernels
 
 
@@ -82,9 +85,10 @@ class _Launch:
             rl[k] = max(len(reads[n]), 1)
         self.nbytes = mat.nbytes + rl.nbytes
         self.rl_host = rl
-        self.masked = torch.from_numpy(mat).to(dev)
-        self.rl = torch.from_numpy(rl).to(dev)
-        self.jcol = torch.arange(L, dtype=torch.int32, device=dev)
+        with spans.upload(dev):
+            self.masked = torch.from_numpy(mat).to(dev)
+            self.rl = torch.from_numpy(rl).to(dev)
+            self.jcol = torch.arange(L, dtype=torch.int32, device=dev)
 
 
 class ReplayRunner:
@@ -97,6 +101,7 @@ class ReplayRunner:
     middle phase replays schemes the kernels refuse in host rounds.
     """
 
+    @spans.timed('plan')
     def __init__(self, reads, adapters, scoring=(3, -6, -5, -2),
                  device=None):
         if not kernels.supports(scoring):
@@ -118,8 +123,9 @@ class ReplayRunner:
         self.al_host = alen
         # The one and only read-data upload; rounds mask it in place.
         dev = self.device
-        self.amat = torch.from_numpy(amat).to(dev)
-        self.alen = torch.from_numpy(alen).to(dev)
+        with spans.upload(dev):
+            self.amat = torch.from_numpy(amat).to(dev)
+            self.alen = torch.from_numpy(alen).to(dev)
         self.h2d_read_bytes = amat.nbytes + alen.nbytes
         self.h2d_round_bytes = 0
 
@@ -138,6 +144,7 @@ class ReplayRunner:
                 break
         self.L = self._launches[0].jcol.shape[0]    # the longest read's rung
 
+    @spans.timed('plan')
     def round(self, a_idx, m_start, m_end):
         """a_idx: (B,) adapter row per lane (use dummy_row() for finished
         lanes); m_start/m_end: the hit region each lane's PREVIOUS round
@@ -156,16 +163,20 @@ class ReplayRunner:
             ms[:n] = m_start[g.lanes]
             me[:n] = m_end[g.lanes]
             self.h2d_round_bytes += ai.nbytes + ms.nbytes + me.nbytes
-            ai_d = torch.from_numpy(ai).to(dev).long()
-            ms_d = torch.from_numpy(ms).to(dev)[:, None]
-            me_d = torch.from_numpy(me).to(dev)[:, None]
-            g.masked.masked_fill_((g.jcol >= ms_d) & (g.jcol < me_d), 4)
-            walk, best, ci, cj = kernels.forward_walk(
-                g.masked, g.rl, self.amat.index_select(0, ai_d),
-                self.alen.index_select(0, ai_d), *self.scoring)
-            res = engine_v2.finish_v2(walk.cpu().numpy(), best.cpu().numpy(),
-                                      ci.cpu().numpy(), cj.cpu().numpy(),
-                                      g.rl_host, self.al_host[ai])
+            with spans.upload(dev):
+                ai_d = torch.from_numpy(ai).to(dev).long()
+                ms_d = torch.from_numpy(ms).to(dev)[:, None]
+                me_d = torch.from_numpy(me).to(dev)[:, None]
+            with spans.enqueue(g.rl_host, None, self.al_host, ai):
+                g.masked.masked_fill_((g.jcol >= ms_d) & (g.jcol < me_d), 4)
+                walk, best, ci, cj = kernels.forward_walk(
+                    g.masked, g.rl, self.amat.index_select(0, ai_d),
+                    self.alen.index_select(0, ai_d), *self.scoring)
+            with spans.span('wait'):
+                walk, best, ci, cj = (t.cpu().numpy()
+                                      for t in (walk, best, ci, cj))
+            res = engine_v2.finish_v2(walk, best, ci, cj, g.rl_host,
+                                      self.al_host[ai])
             for f, v in res.items():
                 out.setdefault(f, np.zeros(self.B, v.dtype))[g.lanes] = v[:n]
         failed = out['read_start'] == -1

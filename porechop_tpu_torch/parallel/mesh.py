@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import engine_v2
+from ..utils import spans
 
 
 def local_devices() -> list:
@@ -47,7 +48,7 @@ def split_lanes(n: int, parts: int) -> list:
 
 
 def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
-                  groups=None) -> list:
+                  groups=None, lens=None) -> list:
     """Enqueues one launch with its lanes split over the device entries.
     Lane k aligns row w_idx[k] of the window table against row a_idx[k]
     of the adapter table; tables(dev) returns (wtab, wlens, atab, alens)
@@ -55,28 +56,37 @@ def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
     score), both with groups = (g_idx, n_groups); 'st' (per-lane stats);
     'sc' (per-lane score); 'res' (trace-bit forward and its walk,
     engine_v2.gather_forward).  Every entry's call is enqueued on its
-    device before the caller harvests any.  Returns, per entry with lanes,
-    in lane order, the engine_v2.fused_gather_* result; for 'res', (walk,
-    best, cell_i, cell_j)."""
+    device before the caller harvests any.  lens: the host lengths of the
+    tables' rows (window, adapter), for the launch records of
+    utils/spans.py.  Returns, per entry with lanes, in lane order, the
+    engine_v2.fused_gather_* result; for 'res', (walk, best, cell_i,
+    cell_j)."""
+    wlens, alens = (None, None) if lens is None else lens
     shards = []
     for (lo, hi), dev in zip(split_lanes(len(w_idx), len(devices)),
                              devices):
         if hi == lo:
             continue
-        tabs = (*tables(dev), torch.from_numpy(w_idx[lo:hi]).to(dev),
-                torch.from_numpy(a_idx[lo:hi]).to(dev))
-        if kind in ('gm', 'gsc'):
-            g_idx, n_groups = groups
-            fn = (engine_v2.fused_gather_groupmax if kind == 'gm'
-                  else engine_v2.fused_gather_group_scoremax)
-            shards.append(fn(*tabs, torch.from_numpy(g_idx[lo:hi]).to(dev),
-                             n_groups, scoring))
-        elif kind == 'sc':
-            shards.append(engine_v2.fused_gather_scores(*tabs, scoring))
-        elif kind == 'st':
-            shards.append(engine_v2.fused_gather_stats(*tabs, scoring))
-        else:
-            shards.append(engine_v2.gather_forward(*tabs, scoring))
+        wi, ai = w_idx[lo:hi], a_idx[lo:hi]
+        with spans.upload(dev):
+            tabs = (*tables(dev), torch.from_numpy(wi).to(dev),
+                    torch.from_numpy(ai).to(dev))
+            if kind in ('gm', 'gsc'):
+                g_idx, n_groups = groups
+                tabs += (torch.from_numpy(g_idx[lo:hi]).to(dev), n_groups)
+        with spans.enqueue(wlens, wi, alens, ai):
+            if kind == 'gm':
+                shards.append(engine_v2.fused_gather_groupmax(*tabs,
+                                                              scoring))
+            elif kind == 'gsc':
+                shards.append(engine_v2.fused_gather_group_scoremax(
+                    *tabs, scoring))
+            elif kind == 'sc':
+                shards.append(engine_v2.fused_gather_scores(*tabs, scoring))
+            elif kind == 'st':
+                shards.append(engine_v2.fused_gather_stats(*tabs, scoring))
+            else:
+                shards.append(engine_v2.gather_forward(*tabs, scoring))
     return shards
 
 
@@ -98,7 +108,8 @@ def _dense(devices, reads, read_lens, adapters, adapter_lens):
 
 
 def _host(t) -> np.ndarray:
-    return t.cpu().numpy()
+    with spans.span('wait'):
+        return t.cpu().numpy()
 
 
 def sharded_align(devices, reads, read_lens, adapters, adapter_lens,
@@ -110,7 +121,7 @@ def sharded_align(devices, reads, read_lens, adapters, adapter_lens,
     devices, tables, lanes = _dense(devices, reads, read_lens, adapters,
                                     adapter_lens)
     shards = launch_shards('res', devices, tables, lanes, lanes,
-                           tuple(scoring))
+                           tuple(scoring), lens=(read_lens, adapter_lens))
     walk, best, ci, cj = (np.concatenate([_host(s[k]) for s in shards])
                           for k in range(4))
     return engine_v2.finish_v2(walk, best, ci, cj,
@@ -131,7 +142,8 @@ def detection_step(devices, reads, read_lens, adapters, adapter_lens,
                                     adapter_lens)
     shards = launch_shards('gm', devices, tables, lanes, lanes,
                            tuple(scoring),
-                           (np.asarray(set_ids, np.int64), int(n_sets)))
+                           (np.asarray(set_ids, np.int64), int(n_sets)),
+                           lens=(read_lens, adapter_lens))
     gm, gl = engine_v2.merge_groupmax([(_host(m), _host(ln))
                                        for m, ln in shards])
     seg = np.where(gl > 0, gm / np.maximum(gl, 1), -1.0).astype(np.float32)

@@ -34,6 +34,7 @@ import os
 import sys
 from collections import defaultdict
 
+from ..utils import spans
 from ..utils.fastx import get_compression_type, get_sequence_file_type
 from ..utils.text import bold_underline, int_to_str
 from .model import Read
@@ -284,24 +285,27 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
     def compute_chunk(reads):
         if not matching_sets:
             return
-        find_adapters_at_read_ends(
-            reads, matching_sets, 0, args.end_size, args.extra_end_trim,
-            args.end_threshold, args.scoring_scheme_vals, dest,
-            args.min_trim_size, args.threads, check_barcodes,
-            args.barcode_threshold, args.barcode_diff,
-            args.require_two_barcodes, forward_or_reverse_barcodes,
-            device=device)
-        if verbosity > 0:
-            # Live phase-2 progress over the global index range (every
-            # 10th + the final one, like output_progress_line's step).
-            for r in range(done + 1, done + len(reads) + 1):
-                output_progress_line(r, total_reads, dest)
+        with spans.phase('endtrim'):
+            find_adapters_at_read_ends(
+                reads, matching_sets, 0, args.end_size, args.extra_end_trim,
+                args.end_threshold, args.scoring_scheme_vals, dest,
+                args.min_trim_size, args.threads, check_barcodes,
+                args.barcode_threshold, args.barcode_diff,
+                args.require_two_barcodes, forward_or_reverse_barcodes,
+                device=device)
+            if verbosity > 0:
+                # Live phase-2 progress over the global index range (every
+                # 10th + the final one, like output_progress_line's step).
+                for r in range(done + 1, done + len(reads) + 1):
+                    output_progress_line(r, total_reads, dest)
         if not args.no_split:
-            find_adapters_in_read_middles(
-                reads, matching_sets, 0, args.middle_threshold,
-                args.extra_middle_trim_good_side,
-                args.extra_middle_trim_bad_side, args.scoring_scheme_vals,
-                dest, args.threads, args.discard_middle, device=device)
+            with spans.phase('middle'):
+                find_adapters_in_read_middles(
+                    reads, matching_sets, 0, args.middle_threshold,
+                    args.extra_middle_trim_good_side,
+                    args.extra_middle_trim_bad_side,
+                    args.scoring_scheme_vals, dest, args.threads,
+                    args.discard_middle, device=device)
 
     def write_chunk(reads):
         for read in reads:
@@ -337,9 +341,15 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
             yield chunk
 
     try:
-        for chunk in chunks():
+        parsed = chunks()
+        while True:
+            with spans.phase('load'):
+                chunk = next(parsed, None)
+            if chunk is None:
+                break
             compute_chunk(chunk)
-            write_chunk(chunk)
+            with spans.phase('output'):
+                write_chunk(chunk)
             counts = [a + b for a, b in zip(counts, trim_counts(chunk))]
             done += len(chunk)
             del chunk                   # before the next one is parsed
@@ -348,33 +358,34 @@ def run_streaming(args, matching_sets, forward_or_reverse_barcodes,
             if fh is not sys.stdout:
                 fh.close()
 
-    # Deferred v1 text: phase-2 close + summary, then the whole phase-3
-    # block, in the reference's order (porechop.py:517-604).
-    if verbosity > 0 and matching_sets:
-        print_end_trim_close(total_reads, counts, dest)
-        if not args.no_split:
-            print_middle_block(total_reads, counts[4], args.discard_middle,
-                               args.threads, dest)
-    elif verbosity > 0:
-        print('No adapters found - output reads are unchanged from input '
-              'reads\n', file=dest)
+    with spans.phase('output'):
+        # Deferred v1 text: phase-2 close + summary, then the whole phase-3
+        # block, in the reference's order (porechop.py:517-604).
+        if verbosity > 0 and matching_sets:
+            print_end_trim_close(total_reads, counts, dest)
+            if not args.no_split:
+                print_middle_block(total_reads, counts[4], args.discard_middle,
+                                   args.threads, dest)
+        elif verbosity > 0:
+            print('No adapters found - output reads are unchanged from input '
+                  'reads\n', file=dest)
 
-    # Output section (reference porechop.py:607-704 text order).
-    if verbosity > 0:
-        print_output_banner(args.untrimmed, args.barcode_dir, args.output,
-                            dest)
-    gzip_cmd = (gzip_command_for(args.threads, verbosity, dest)
-                if gzipped_out else 'gzip')
-    bins = {k: (bin_read_counts[k], bin_base_counts[k])
-            for k in bin_read_counts}
-    if args.barcode_dir is not None:
-        finish_bins(bins, args.barcode_dir, plain_format, gzipped_out,
-                    gzip_cmd, verbosity, dest)
-    else:
-        if gzipped_out:
-            gzip_into(gzip_cmd, args.output + '.tmp', args.output)
+        # Output section (reference porechop.py:607-704 text order).
         if verbosity > 0:
-            print_output_done(args.output, dest)
-    if verbosity > 0:
-        print('', flush=True, file=dest)
+            print_output_banner(args.untrimmed, args.barcode_dir, args.output,
+                                dest)
+        gzip_cmd = (gzip_command_for(args.threads, verbosity, dest)
+                    if gzipped_out else 'gzip')
+        bins = {k: (bin_read_counts[k], bin_base_counts[k])
+                for k in bin_read_counts}
+        if args.barcode_dir is not None:
+            finish_bins(bins, args.barcode_dir, plain_format, gzipped_out,
+                        gzip_cmd, verbosity, dest)
+        else:
+            if gzipped_out:
+                gzip_into(gzip_cmd, args.output + '.tmp', args.output)
+            if verbosity > 0:
+                print_output_done(args.output, dest)
+        if verbosity > 0:
+            print('', flush=True, file=dest)
     return counts, bins

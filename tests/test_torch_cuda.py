@@ -463,6 +463,51 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     assert outs[0] == outs[1]
 
 
+def test_port_kernels_start_inside_their_enqueue_spans(card, tmp_path,
+                                                       monkeypatch):
+    """A CLI run on the card under PORECHOP_TPU_TIMING and
+    PORECHOP_TPU_PROFILE (after one unprofiled run): the call that
+    launched each port kernel lies in one `enqueue` range of the trace,
+    and the kernel starts after that range's start.  The profiler's
+    kernel times may lead the host's clock: no kernel can start before
+    its own launch call, so the largest such lead in the trace is the
+    offset between the two clocks, and it is taken out (a few hundred
+    microseconds in some sessions on an H100)."""
+    write_fastq(str(tmp_path / 'reads.fastq'),
+                synth_reads(24, 2000, seed=5, chimera_rate=0.3))
+    monkeypatch.setenv('PORECHOP_TPU_TIMING', '1')
+    monkeypatch.chdir(tmp_path)
+    argv = ['-i', 'reads.fastq', '-o', 'out.fastq', '-v', '0']
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main(argv, device='cuda')
+        monkeypatch.setenv('PORECHOP_TPU_PROFILE', str(tmp_path / 'trace'))
+        cli.main(argv, device='cuda')
+    (name,) = os.listdir(tmp_path / 'trace')
+    with open(tmp_path / 'trace' / name) as f:
+        events = json.load(f)['traceEvents']
+    enqueue = [(e['ts'], e['ts'] + e['dur']) for e in events
+               if e.get('cat') == 'user_annotation'
+               and e['name'] == 'enqueue']
+    calls = collections.defaultdict(list)
+    for e in events:
+        if e.get('cat') in ('cuda_runtime', 'cuda_driver') and \
+                'LaunchKernel' in e['name']:
+            calls[e['args']['correlation']].append(e['ts'])
+    kernel_events = [e for e in events if e.get('cat') == 'kernel']
+    lead = max([0.0] + [t - k['ts'] for k in kernel_events
+                        for t in calls[k['args']['correlation']]])
+    assert lead < 5000, lead
+    port = [k for k in kernel_events if any(
+        n in k['name'] for n in ('dp_wave_kernel', 'bits_fold_kernel',
+                                 'dp_walk_kernel'))]
+    assert port and enqueue
+    for k in port:
+        (t,) = calls[k['args']['correlation']]
+        (start,) = [s for s, e in enqueue if s <= t <= e]
+        assert k['ts'] + lead >= start, (k['name'], k['ts'], lead, start)
+
+
 def test_bench_on_the_card(card):
     """bench_torch.py at 512 x 10 kb, one run a side: the card's and the
     forced host's outputs agree, every phase is timed and the card held
