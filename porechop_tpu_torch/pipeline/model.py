@@ -198,52 +198,6 @@ class Read:
         (nanopore_read.py:98,123)."""
         return bool(self.middle_trim_ranges)
 
-    # ---- barcode call (nanopore_read.py:399-473) ----
-
-    def determine_barcode(self, barcode_threshold, barcode_diff,
-                          require_two_barcodes):
-        start_scores = sorted(self.start_barcode_scores.items(),
-                              reverse=True, key=lambda x: x[1])
-        end_scores = sorted(self.end_barcode_scores.items(),
-                            reverse=True, key=lambda x: x[1])
-        if len(start_scores) >= 1:
-            self.best_start_barcode = start_scores[0]
-        if len(start_scores) >= 2:
-            self.second_best_start_barcode = start_scores[1]
-        if len(end_scores) >= 1:
-            self.best_end_barcode = end_scores[0]
-        if len(end_scores) >= 2:
-            self.second_best_end_barcode = end_scores[1]
-
-        call = 'none'
-        if require_two_barcodes:
-            ok = (self.best_start_barcode[1] >= barcode_threshold
-                  and self.best_end_barcode[1] >= barcode_threshold
-                  and self.best_start_barcode[1] >=
-                  self.second_best_start_barcode[1] + barcode_diff
-                  and self.best_end_barcode[1] >=
-                  self.second_best_end_barcode[1] + barcode_diff
-                  and self.best_start_barcode[0] == self.best_end_barcode[0])
-            if ok:
-                call = self.best_start_barcode[0]
-        else:
-            combined = []
-            seen = set()
-            for name, score in sorted(start_scores + end_scores,
-                                      reverse=True, key=lambda x: x[1]):
-                if name not in seen:
-                    combined.append((name, score))
-                    seen.add(name)
-            best = combined[0] if combined else ('none', 0.0)
-            second = combined[1] if len(combined) >= 2 else ('none', 0.0)
-            if best[1] >= barcode_threshold and best[1] >= second[1] + barcode_diff:
-                call = best[0]
-        self.barcode_call = call
-        # Albacore-agreement veto (nanopore_read.py:471-473).
-        if (self.albacore_barcode_call is not None
-                and self.barcode_call != self.albacore_barcode_call):
-            self.barcode_call = 'none'
-
     # ---- verbosity formatting (nanopore_read.py:245-397) ----
 
     def formatted_start_seq(self, end_size, extra_trim_size):

@@ -4,9 +4,10 @@
 The reference runs one FFI alignment call per (read, adapter) pair inside a
 thread pool (porechop/porechop.py:286-595).  Here every phase builds one
 AlignJobs batch (ops/dispatch.py), launches it on the device, and then
-applies the reference's decision logic on the host in the exact same
-per-read, per-adapter order, so all outputs (including verbosity text and
-progress lines) are byte-identical to a single-threaded reference run.
+applies the reference's decision logic on the host, over whole result
+arrays where it allows (phase 2) and else in the reference's per-read,
+per-adapter order, so all outputs (including verbosity text and progress
+lines) are byte-identical to a single-threaded reference run.
 Every phase takes the `device` its launches run on (default: the card;
 a list of device entries splits each launch's lanes, ops/dispatch.py).
 """
@@ -27,6 +28,7 @@ from ..ops import middle
 from ..ops.dispatch import (AlignJobs, score_path_available, seqan_pct_vec,
                             stats_path_active)
 from ..ops.kernels import score_prefilter_coef, supports
+from ..utils import spans
 from ..utils.fastx import load_fasta_or_fastq
 from ..utils.text import bold_underline, int_to_str, print_table, red
 from .model import Read
@@ -349,67 +351,71 @@ def find_adapters_at_read_ends(reads, matching_sets, verbosity, end_size,
             adapter_seqs.append(spec.encode(seq))
         return adapter_idx[seq]
 
-    pairs = []
-    for ri in range(read_count):
-        for m in start_sets:
-            pairs.append((2 * ri, aidx(m.start_sequence[1])))
-        for m in end_sets:
-            pairs.append((2 * ri + 1, aidx(m.end_sequence[1])))
-    # Progress ticks as chunks harvest (pairs are read-major: job k belongs
-    # to read k // jobs_per_read).
-    jobs_per_read = max(1, len(start_sets) + len(end_sets))
-    prog = HarvestProgress(read_count, len(start_sets) + len(end_sets),
+    # Pairs read-major, each read's start sets in order, then its end
+    # sets; the per-set constants are worked out once a call.
+    n_start = len(start_sets)
+    jobs_per_read = n_start + len(end_sets)
+    sets = start_sets + end_sets
+    set_ai = np.array([aidx(m.start_sequence[1]) for m in start_sets]
+                      + [aidx(m.end_sequence[1]) for m in end_sets],
+                      dtype=np.int64)
+    pairs = np.empty((read_count * jobs_per_read, 2), dtype=np.int64)
+    pairs[:, 0] = (2 * np.repeat(np.arange(read_count, dtype=np.int64),
+                                 jobs_per_read)
+                   + np.tile(np.arange(jobs_per_read) >= n_start, read_count))
+    pairs[:, 1] = np.tile(set_ai, read_count)
+    # Progress ticks as chunks harvest (job k belongs to read
+    # k // jobs_per_read).
+    prog = HarvestProgress(read_count, jobs_per_read,
                            lambda k: k // jobs_per_read, print_dest,
                            enabled=verbosity == 1)
-    res = AlignJobs(windows, adapter_seqs, np.array(pairs, dtype=np.int64),
-                    scoring_scheme_vals,
-                    device=device).run(progress=prog) if pairs else None
+    res = AlignJobs(windows, adapter_seqs, pairs, scoring_scheme_vals,
+                    device=device).run(progress=prog) if len(pairs) else None
 
-    k = 0
-    per_read_lines = []
-    for read in reads:
-        # Start side (nanopore_read.py:166-186).
-        for m in start_sets:
-            full_score = res['full_pct'][k]
-            partial_score = res['partial_pct'][k]
-            read_start = int(res['read_start'][k])
-            read_end = int(res['read_end_excl'][k])
-            k += 1
-            if (partial_score > end_threshold and read_end != end_size
-                    and read_end - read_start >= min_trim_size):
-                trim_amount = read_end + extra_trim_size
-                read.start_trim_amount = max(read.start_trim_amount, trim_amount)
-                read.start_adapter_alignments.append(
-                    (m, full_score, partial_score, read_start, read_end))
-            if (check_barcodes and m.is_barcode()
-                    and m.barcode_direction() == forward_or_reverse_barcodes):
-                read.start_barcode_scores[m.get_barcode_name()] = full_score
-        # End side (nanopore_read.py:188-208).
-        for m in end_sets:
-            full_score = res['full_pct'][k]
-            partial_score = res['partial_pct'][k]
-            read_start = int(res['read_start'][k])
-            read_end = int(res['read_end_excl'][k])
-            k += 1
-            if (partial_score > end_threshold and read_start != 0
-                    and read_end - read_start >= min_trim_size):
-                trim_amount = (end_size - read_start) + extra_trim_size
-                read.end_trim_amount = max(read.end_trim_amount, trim_amount)
-                read.end_adapter_alignments.append(
-                    (m, full_score, partial_score, read_start, read_end))
-            if (check_barcodes and m.is_barcode()
-                    and m.barcode_direction() == forward_or_reverse_barcodes):
-                read.end_barcode_scores[m.get_barcode_name()] = full_score
+    # The decisions (nanopore_read.py:166-208) over the (reads, sets)
+    # result matrices; per-read Python work only for the pairs that pass.
+    n_passed = 0
+    if res is not None:
+        shape = (read_count, jobs_per_read)
+        full = res['full_pct'].reshape(shape)
+        partial = res['partial_pct'].reshape(shape)
+        read_start = res['read_start'].reshape(shape)
+        read_end = res['read_end_excl'].reshape(shape)
+        on_start = np.arange(jobs_per_read) < n_start
+        passed = ((partial > end_threshold)
+                  & np.where(on_start, read_end != end_size, read_start != 0)
+                  & (read_end - read_start >= min_trim_size))
+        trim = np.where(on_start, read_end,
+                        end_size - read_start) + extra_trim_size
+        rows, cols = np.nonzero(passed)
+        n_passed = len(rows)
+        for r, j, f, p, s, e, t in zip(
+                rows.tolist(), cols.tolist(), full[rows, cols].tolist(),
+                partial[rows, cols].tolist(),
+                read_start[rows, cols].tolist(),
+                read_end[rows, cols].tolist(), trim[rows, cols].tolist()):
+            read = reads[r]
+            if j < n_start:
+                read.start_trim_amount = max(read.start_trim_amount, t)
+                read.start_adapter_alignments.append((sets[j], f, p, s, e))
+            else:
+                read.end_trim_amount = max(read.end_trim_amount, t)
+                read.end_adapter_alignments.append((sets[j], f, p, s, e))
         if check_barcodes:
-            read.determine_barcode(barcode_threshold, barcode_diff,
-                                   require_two_barcodes)
-        dump_level = verbosity if verbosity > 1 else collect_dumps
-        if dump_level == 2:
-            per_read_lines.append(read.formatted_start_and_end_seq(
-                end_size, extra_trim_size, check_barcodes))
-        elif dump_level > 2:
-            per_read_lines.append(read.full_start_end_output(
-                end_size, extra_trim_size, check_barcodes))
+            call_barcodes(reads, full, sets, n_start,
+                          forward_or_reverse_barcodes, barcode_threshold,
+                          barcode_diff, require_two_barcodes)
+    spans.count('endtrim.pairs_decided', len(pairs))
+    spans.count('endtrim.pairs_passed', n_passed)
+
+    per_read_lines = []
+    dump_level = verbosity if verbosity > 1 else collect_dumps
+    if dump_level == 2:
+        per_read_lines = [read.formatted_start_and_end_seq(
+            end_size, extra_trim_size, check_barcodes) for read in reads]
+    elif dump_level > 2:
+        per_read_lines = [read.full_start_end_output(
+            end_size, extra_trim_size, check_barcodes) for read in reads]
 
     if verbosity == 1:
         prog.finish()
@@ -419,6 +425,81 @@ def find_adapters_at_read_ends(reads, matching_sets, verbosity, end_size,
     if verbosity > 0:
         print('', file=print_dest)
     return per_read_lines
+
+
+def call_barcodes(reads, full, sets, n_start, direction, threshold, diff,
+                  require_two):
+    """Each read's barcode scores, best and second-best barcode at each
+    end, and call (nanopore_read.py:166-208, 399-473), from the full %id
+    matrix (reads x sets, the first n_start columns the start sets').
+
+    A side's scores are the dict the reference fills set by set: a name's
+    first set places it, its last one scores it.  Every order is a stable
+    descending sort of the columns, start columns before end columns, as
+    the reference's sorted(..., reverse=True) over the dicts leaves ties.
+    Without require_two the call weighs the first entry of the order over
+    both ends against the first after it under another name."""
+    s_names, s_cols = _score_columns(sets[:n_start], 0, direction)
+    e_names, e_cols = _score_columns(sets[n_start:], n_start, direction)
+    ns = len(s_names)
+    n = ns + len(e_names)
+    R = len(reads)
+    rows = np.arange(R)
+    # Column n, ('none', 0.0), stands in for an absent entry.
+    names = s_names + e_names + ['none']
+    scores = np.concatenate([full[:, s_cols + e_cols], np.zeros((R, 1))],
+                            axis=1)
+    ids_of = {}
+    ids = np.array([ids_of.setdefault(x, len(ids_of)) for x in names])
+
+    def ranked(lo, hi):
+        """Columns lo..hi-1 of each row in a stable descending order,
+        then column n twice."""
+        order = lo + np.argsort(-scores[:, lo:hi], axis=1, kind='stable')
+        return np.concatenate([order, np.full((R, 2), n)], axis=1)
+
+    # Each end's best and second-best columns.
+    top = np.concatenate([ranked(0, ns)[:, :2], ranked(ns, n)[:, :2]],
+                         axis=1)
+    top_scores = scores[rows[:, None], top]
+    if require_two:
+        v = top_scores.T
+        best = top[:, 0]
+        ok = ((v[0] >= threshold) & (v[2] >= threshold)
+              & (v[0] >= v[1] + diff) & (v[2] >= v[3] + diff)
+              & (ids[best] == ids[top[:, 2]]))
+    else:
+        order = ranked(0, n)
+        other = ids[order] != ids[order[:, :1]]
+        best = order[:, 0]
+        second = order[rows, other.argmax(axis=1)]
+        ok = ((scores[rows, best] >= threshold)
+              & (scores[rows, best] >= scores[rows, second] + diff))
+    for read, s_row, e_row, t, v, b, k in zip(
+            reads, scores[:, :ns].tolist(), scores[:, ns:n].tolist(),
+            top.tolist(), top_scores.tolist(), best.tolist(), ok.tolist()):
+        read.start_barcode_scores = dict(zip(s_names, s_row))
+        read.end_barcode_scores = dict(zip(e_names, e_row))
+        read.best_start_barcode = (names[t[0]], v[0])
+        read.second_best_start_barcode = (names[t[1]], v[1])
+        read.best_end_barcode = (names[t[2]], v[2])
+        read.second_best_end_barcode = (names[t[3]], v[3])
+        call = names[b] if k else 'none'
+        # Albacore-agreement veto (nanopore_read.py:471-473).
+        if (read.albacore_barcode_call is not None
+                and call != read.albacore_barcode_call):
+            call = 'none'
+        read.barcode_call = call
+
+
+def _score_columns(sets, offset, direction):
+    """The names a side's barcode-score dict holds, in insertion order,
+    and the column of the last set that writes each."""
+    col = {}
+    for j, m in enumerate(sets):
+        if m.is_barcode() and m.barcode_direction() == direction:
+            col[m.get_barcode_name()] = offset + j
+    return list(col), list(col.values())
 
 
 def print_end_trim_header(matching_sets, print_dest):

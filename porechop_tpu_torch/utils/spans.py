@@ -20,7 +20,10 @@ A job is one cli.main call.  Inside it:
   entry point, device, instantiation ('AMAX/LW', 'plain' for the plain
   versions), lanes as launched, L, A, and the cells the lanes need
   (sum of read_len x adapter_len), counted on the host from the lengths
-  the caller holds (`enqueue(...)`), never read back from the card.
+  the caller holds (`enqueue(...)`), never read back from the card;
+- counters, summed over the job: `endtrim.pairs_decided` (the pairs
+  phase 2 decides over whole result arrays) and `endtrim.pairs_passed`
+  (those that pass and are written to their read one by one).
 
 Each job leaves one record in a buffer of the last JOBS_KEPT jobs
 (last_jobs), also when it fails, and a summary on stderr, one `[spans]`
@@ -103,6 +106,7 @@ class _Job:
         self.spans = {}         # label -> {name -> [s, n]}
         self.launches = {}      # (label,) + key -> [n, n sized, needed]
         self.rss = {}           # label -> bytes at its last close
+        self.counts = {}        # counter -> total
 
     def close_phase(self, label, seconds):
         ph = self.phases.setdefault(label, [0.0, 0])
@@ -168,6 +172,7 @@ class _Job:
                       'launched_sized': sized,
                       'needed': sum(x[9] for x in launches)},
             'rss_bytes': dict(self.rss),
+            'counts': dict(self.counts),
         }
 
 
@@ -275,7 +280,7 @@ def last_jobs(n):
     'totals' {name: [s, n]}, 'launches' [[phase, entry, device,
     instantiation, lanes, L, A, launches, launches sized, needed cells]],
     'cells' {'launches', 'launched', 'launched_sized', 'needed'},
-    'rss_bytes' {label: bytes}}."""
+    'rss_bytes' {label: bytes}, 'counts' {counter: total}}."""
     if n <= 0:
         return []
     return list(_JOBS)[-n:]
@@ -299,6 +304,8 @@ def _summary(rec):
         ' (%.2f%% of those launched with lengths)'
         % (100.0 * c['needed'] / c['launched_sized'])
         if c['launched_sized'] else ''))
+    for name, n in rec['counts'].items():
+        lines.append('%s count %s %d' % (head, name, n))
     return lines
 
 
@@ -371,6 +378,13 @@ def timed(name):
                 return fn(*args, **kwargs)
         return wrapped
     return deco
+
+
+def count(name, n):
+    """Adds n to the open job's counter called name."""
+    job = _current()
+    if job is not None:
+        job.counts[name] = job.counts.get(name, 0) + n
 
 
 def launch(entry, device, inst, B, L, A):
