@@ -36,8 +36,9 @@ PORECHOP_TPU_TIMING=1 prints the planner's `[timing]` lines on stderr, in
 the JAX package's words: prefilter survivors, launches enqueued and
 harvested (padded cells/s), the work share and native batches; inside a
 CLI job it also records the planner's spans (utils/spans.py: `plan`
-around the public run methods, `host_route`, and through
-mesh.launch_shards `upload` and `enqueue`; `wait` at every copy back).
+around the public run methods, `host_route`, `upload` and, through
+mesh.launch_lanes, `enqueue`; `wait` at every copy back) and counts a
+product's lanes (`planner.product_lanes`).
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
 only decides whether the kernels or their plain versions run.
@@ -49,6 +50,13 @@ held once per (rung, device); every entry's launch (for trace bits, the
 forward and its walk in one kernels.forward_walk call) is enqueued before
 any is harvested, and the shards are harvested in order, so the results
 are those of one entry.
+
+A Product of jobs (the detection phase's check reads x adapter-set
+sides) runs the group modes axis by axis: the same launches as its flat
+pairs, but its tables and axes go to the devices once and each launch
+computes its lane indices there (mesh.launch_lanes), so no per-pair
+array is built, sorted or uploaded.  Every other route (host, v1, size
+route, rung merge, rungs past the group kernels) takes its flat pairs.
 """
 
 from __future__ import annotations
@@ -186,7 +194,7 @@ def resolve_devices(device=None) -> list:
             for n in names]
 
 
-def _noop_progress(idxs):
+def _noop_progress(*resolved):
     pass
 
 
@@ -279,6 +287,53 @@ def _named(seqs, idx):
     return [seqs[k] for k in used], row[idx]
 
 
+class Product:
+    """A full product of alignment jobs, held axis by axis: every row
+    against every column.  Row r holds one window per side
+    (row_windows[r, s], window indices); column c names a side
+    (col_side[c]), an adapter (col_adapter[c]) and a group
+    (col_group[c]).  Job r * C + c of its C columns (read-major) aligns
+    window row_windows[r, col_side[c]] against adapter col_adapter[c] in
+    group col_group[c]: pairs() and group_ids() are those flat jobs."""
+
+    def __init__(self, row_windows, col_side, col_adapter, col_group):
+        self.row_windows = np.asarray(row_windows, dtype=np.int64)
+        self.col_side = np.asarray(col_side, dtype=np.int64)
+        self.col_adapter = np.asarray(col_adapter, dtype=np.int64)
+        self.col_group = np.asarray(col_group, dtype=np.int64)
+
+    def pairs(self) -> np.ndarray:
+        return np.column_stack((
+            self.row_windows[:, self.col_side].ravel(),
+            np.tile(self.col_adapter, len(self.row_windows))))
+
+    def group_ids(self) -> np.ndarray:
+        return np.tile(self.col_group, len(self.row_windows))
+
+    def columns(self, keep) -> 'Product':
+        """The same rows against the columns `keep` (a mask or indices)."""
+        return Product(self.row_windows, self.col_side[keep],
+                       self.col_adapter[keep], self.col_group[keep])
+
+
+def _rungs(lens, rung_of) -> np.ndarray:
+    """rung_of (_bucket_len, _bucket_adapter_len) of every length."""
+    u, inv = np.unique(lens, return_inverse=True)
+    return np.array([rung_of(int(n)) for n in u], dtype=np.int64)[inv]
+
+
+def _rows_table(seqs, width):
+    """seqs as table rows of `width` codes, N (4) past each length, and
+    one dummy row (a single 'A') that pad lanes use: (rows, lens) as host
+    tensors, filled in one step from the sequences joined."""
+    lens = np.ones(len(seqs) + 1, dtype=np.int32)
+    lens[:-1] = [len(s) for s in seqs]
+    mat = np.full((len(seqs) + 1, width), 4, dtype=np.int8)
+    mat[np.arange(width) < lens[:, None]] = np.concatenate(
+        list(seqs) + [np.zeros(1, dtype=np.int8)])
+    return torch.from_numpy(mat), torch.from_numpy(lens)
+
+
 def seqan_pct_vec(matches: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Vectorized percent identity matching the reference's round trip
     through C++ std::to_string (6 decimals) and Python float().
@@ -317,7 +372,9 @@ class AlignJobs:
 
     windows: list of np.int8 Dna5 code arrays (the read-side sequences).
     adapters: list of np.int8 code arrays.
-    pairs: (P, 2) int array of (window_index, adapter_index).
+    pairs: (P, 2) int array of (window_index, adapter_index), or a
+    Product of them, which the group modes run axis by axis where they
+    can (_product_lens) and every other route takes as its flat pairs.
     device: the device entries the kernels' launches split over (default:
     the CUDA card; see resolve_devices).
     """
@@ -326,7 +383,11 @@ class AlignJobs:
                  device=None):
         self.windows = windows
         self.adapters = adapters
-        self.pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        if isinstance(pairs, Product):
+            self.product, self._pairs = pairs, None
+        else:
+            self.product = None
+            self._pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
         self.scoring = tuple(int(x) for x in scoring)
         self.devices = resolve_devices(device)
         self.device = self.devices[0]
@@ -340,17 +401,38 @@ class AlignJobs:
         self._gscore = None         # (group_ids, n_groups) group-score mode
         self._gsacc = None          # (n_groups,) int64 max-score fold
 
+    @property
+    def pairs(self) -> np.ndarray:
+        """The (P, 2) flat jobs; a product's are made at first use."""
+        if self._pairs is None:
+            self._pairs = self.product.pairs()
+        return self._pairs
+
     # Window rungs above this bypass the device group max (its packed
     # election key needs full_len < 4096).
     _GROUP_MAX_RUNG = 1536
+
+    def _group_ids(self, group_ids):
+        if group_ids is None:
+            group_ids = self.product.group_ids()
+        return np.asarray(group_ids, dtype=np.int64)
 
     @spans.timed('plan')
     def run_group_max(self, group_ids, n_groups, progress=None) -> dict:
         """Group-reduced execution: per group, the best exact identity
         fraction matches/full_len over its jobs (the detection phase's
         per-(adapter set, side) max, reference nanopore_read.py:155-164).
-        Returns {'matches', 'full_len', 'full_pct'} of shape (n_groups,)."""
-        group_ids = np.asarray(group_ids, dtype=np.int64)
+        Returns {'matches', 'full_len', 'full_pct'} of shape (n_groups,).
+        A product takes its columns' groups (group_ids None); where it
+        runs axis by axis, progress(rows, counts) is told how many of each
+        row's jobs resolved, in place of progress(job_indices)."""
+        row_len = (None if self.product is None
+                   else self._product_lens(self._GROUP_MAX_RUNG))
+        if row_len is not None:
+            gacc = self._run_product('gm', n_groups, progress, row_len)
+            return {'matches': gacc[:, 0], 'full_len': gacc[:, 1],
+                    'full_pct': seqan_pct_vec(gacc[:, 0], gacc[:, 1])}
+        group_ids = self._group_ids(group_ids)
         assert group_ids.shape == (len(self.pairs),)
         self._group = (group_ids, int(n_groups))
         # Baseline (0, 1) = 0.0 identity, matching align_adapter's failure
@@ -391,8 +473,12 @@ class AlignJobs:
         """Per-group max raw score (the detection phase's prefilter pass):
         the score-only kernel plus an on-device group max.  Returns a
         (n_groups,) int64 array; groups whose every lane failed stay at the
-        -2^31+1 floor."""
-        group_ids = np.asarray(group_ids, dtype=np.int64)
+        -2^31+1 floor.  A product as run_group_max's."""
+        row_len = (None if self.product is None
+                   else self._product_lens(kernels.MAX_L1P - 1))
+        if row_len is not None:
+            return self._run_product('gsc', n_groups, progress, row_len)
+        group_ids = self._group_ids(group_ids)
         assert group_ids.shape == (len(self.pairs),)
         P = len(self.pairs)
         self._gscore = (group_ids, int(n_groups))
@@ -609,9 +695,22 @@ class AlignJobs:
                 _timing_line('enqueued %d launches in %.3fs'
                              % (len(work), time.perf_counter() - t0))
             return
-        pending = [(chunk, self._launch_chunk(chunk, lb, amax, tables,
-                                              rung_w, rung_a))
-                   for lb, amax, chunk in work]
+        def launch(lb, amax, chunk):
+            return self._launch_chunk(chunk, lb, amax, tables, rung_w, rung_a)
+
+        def harvest(lb, amax, chunk, handle):
+            self._harvest(chunk, handle, out)
+            progress(chunk)
+        self._launch_all(work, launch, harvest)
+
+    @staticmethod
+    def _launch_all(work, launch, harvest):
+        """Enqueues every (lb, amax, chunk) launch of `work`
+        (launch(lb, amax, chunk) returns its handle), then harvests them in
+        order (harvest(lb, amax, chunk, handle)), with the planner's
+        `[timing]` lines."""
+        t0 = time.perf_counter()
+        pending = [launch(lb, amax, chunk) for lb, amax, chunk in work]
         if timing() and work:
             _timing_line('enqueued %d launches in %.3fs'
                          % (len(work), time.perf_counter() - t0))
@@ -620,15 +719,169 @@ class AlignJobs:
         # switch; the port's harvest copies each result when it reads it,
         # so it has no such step and no such line.
         t0 = time.perf_counter()
-        for chunk, h in pending:
-            self._harvest(chunk, h, out)
-            progress(chunk)
+        for (lb, amax, chunk), handle in zip(work, pending):
+            harvest(lb, amax, chunk, handle)
         if timing() and pending:
             dt = time.perf_counter() - t0
             cells = sum(_pad_cells(lb, amax, len(c)) for lb, amax, c in work)
             _timing_line('harvested %d launches in %.3fs (%.2e cells/s '
                          'incl. enqueue-overlap)'
                          % (len(pending), dt, cells / max(dt, 1e-9)))
+
+    def _product_lens(self, max_rung):
+        """Each product row's window length where the product runs axis by
+        axis, else None: on the kernels (not the host route, nor the v1
+        engine, nor with the size route or the rung merge set, which plan
+        flat chunks), with each row's windows of one length (its jobs share
+        a rung) and no window rung past max_rung."""
+        if (force_host() or not kernels.supports(self.scoring)
+                or engine_v1.selected() or _HYBRID_CELLS > 0
+                or _MERGE_CELLS > 0):
+            return None
+        rw = self.product.row_windows
+        wl = np.array([len(self.windows[k]) for k in rw.ravel()],
+                      dtype=np.int64).reshape(rw.shape)
+        if (wl != wl[:, :1]).any() or (
+                wl.size and _bucket_len(int(wl.max())) > max_rung):
+            return None
+        return wl[:, 0] if rw.shape[1] else np.zeros(len(rw), np.int64)
+
+    def _run_product(self, kind, n_groups, progress, row_len):
+        """The product's jobs axis by axis, kind 'gm' (run_group_max:
+        returns the (n_groups, 2) best (matches, full_len)) or 'gsc'
+        (run_group_score_max: the (n_groups,) max scores); row_len from
+        _product_lens.  Each (window rung, adapter rung) cell of the grid,
+        in the order of sorted(_buckets), is the product of its rows and
+        columns, split into launches of _per_launch lanes as contiguous
+        ranges of its read-major flattening: the lanes, launches and
+        padding of the flat pairs' stable bucketing.  The tables and the
+        axes (each column's side, adapter row and group) go to each device
+        once, before the first launch, and each launch computes its lane
+        indices there (_launch_product)."""
+        prod = self.product
+        progress = spans.outside(_noop_progress if progress is None
+                                 else progress)
+        S, C = prod.row_windows.shape[1], len(prod.col_side)
+        col_len = np.array([len(self.adapters[a]) for a in prod.col_adapter],
+                           dtype=np.int64)
+        # Degenerate jobs (an empty window or adapter) resolve at once.
+        dead = np.where(row_len > 0, int((col_len == 0).sum()), C)
+        if dead.any():
+            progress(np.nonzero(dead)[0], dead[dead > 0])
+        live_r = np.nonzero(row_len > 0)[0]
+        live_c = np.nonzero(col_len > 0)[0]
+        rung_r = _rungs(row_len[live_r], _bucket_len)
+        rung_c = _rungs(col_len[live_c], _bucket_adapter_len)
+        rows = {int(lb): live_r[rung_r == lb] for lb in np.unique(rung_r)}
+        cols = {int(am): live_c[rung_c == am] for am in np.unique(rung_c)}
+
+        host = {}
+        for lb, rs in rows.items():
+            host[('w', lb)] = _rows_table(
+                [self.windows[k] for k in prod.row_windows[rs].ravel()], lb)
+        for amax, cs in cols.items():
+            uniq, arow = np.unique(prod.col_adapter[cs], return_inverse=True)
+            axes = np.stack((prod.col_side[cs], arow, prod.col_group[cs]))
+            host[('a', amax)] = (*_rows_table(
+                [self.adapters[k] for k in uniq], amax),
+                torch.from_numpy(np.ascontiguousarray(axes)))
+        tables = {}
+        for dev in self.devices:
+            if dev not in tables:
+                with spans.upload(dev):
+                    tables[dev] = {key: tuple(t.to(dev) for t in val)
+                                   for key, val in host.items()}
+
+        def launch(lb, amax, lanes):
+            spans.count('planner.product_lanes', len(lanes))
+            return self._launch_product(kind, n_groups, tables, lb, amax, S,
+                                        row_len[rows[lb]],
+                                        col_len[cols[amax]], lanes)
+
+        def harvest(lb, amax, lanes, shards):
+            self._fold(kind, shards)
+            E = len(cols[amax])
+            r = np.arange(lanes.start // E, (lanes.stop - 1) // E + 1)
+            progress(rows[lb][r], np.minimum(lanes.stop, (r + 1) * E)
+                     - np.maximum(lanes.start, r * E))
+
+        if kind == 'gm':
+            self._group = (None, int(n_groups))
+            self._gacc = np.zeros((n_groups, 2), dtype=np.int64)
+            self._gacc[:, 1] = 1
+        else:
+            self._score_only = True
+            self._gscore = (None, int(n_groups))
+            self._gsacc = np.full(n_groups, -2 ** 31 + 1, dtype=np.int64)
+        try:
+            # A chunk is a range of the cell's flat lane numbers.
+            work = []
+            for lb in sorted(rows):
+                for amax in sorted(cols):
+                    n = len(rows[lb]) * len(cols[amax])
+                    per = self._per_launch(lb, amax)
+                    work += [(lb, amax, range(c0, min(c0 + per, n)))
+                             for c0 in range(0, n, per)]
+            self._count('device', work, padded=True)
+            self._launch_all(work, launch, harvest)
+        finally:
+            self._group = self._gscore = None
+            self._score_only = False
+            gacc, self._gacc = self._gacc, None
+            gsacc, self._gsacc = self._gsacc, None
+        return gacc if kind == 'gm' else gsacc
+
+    def _launch_product(self, kind, n_groups, tables, lb, amax, S, w_len,
+                        a_len, lanes):
+        """Enqueues the range `lanes` of a grid cell's flat lanes (rows at
+        window rung lb with lengths w_len, columns at adapter rung amax
+        with lengths a_len), padded to a power of two, split over the
+        device entries.  Lane f is row f // E and column f % E of the
+        cell's E columns: on each device its window row (S per row, then
+        the column's side), adapter row and group come from the lane
+        number and the axes there, and pad lanes take the dummy rows and
+        group n_groups.  The needed cells of a range of lanes come from
+        the axes' prefix sums."""
+        E, c0, B = len(a_len), lanes.start, len(lanes)
+        W = np.append(w_len, 0)
+        pre_w = np.concatenate(([0], np.cumsum(W)))
+        pre_a = np.concatenate(([0], np.cumsum(a_len)))
+
+        def cells(k):
+            """Needed cells of the cell's lanes before c0 + min(k, B)."""
+            i, j = divmod(c0 + min(k, B), E)
+            return int(pre_w[i] * pre_a[-1] + W[i] * pre_a[j])
+
+        def shard(dev, lo, hi):
+            wtab, wlen = tables[dev][('w', lb)]
+            atab, alen, axes = tables[dev][('a', amax)]
+            f = torch.arange(c0 + lo, c0 + hi, device=dev)
+            i = torch.div(f, E, rounding_mode='floor')
+            side, arow, grp = axes[:, f - i * E]
+            pad = f >= c0 + B
+            idx = (torch.where(pad, wtab.shape[0] - 1, i * S + side),
+                   torch.where(pad, atab.shape[0] - 1, arow))
+            if kind in ('gm', 'gsc'):
+                idx += (torch.where(pad, n_groups, grp),)
+            needed = cells(hi) - cells(lo) + max(0, hi - max(lo, B))
+            return ((wtab, wlen, atab, alen) + idx,
+                    spans.enqueue_cells(hi - lo, needed))
+        return mesh.launch_lanes(kind, self.devices, _bucket_lanes(B),
+                                 shard, self.scoring, n_groups)
+
+    def _fold(self, kind, shards):
+        """Folds a group launch's shards into the run's accumulators:
+        'gm' the best (matches, full_len), exactly
+        (engine_v2.merge_groupmax); 'gsc' the max scores."""
+        if kind == 'gm':
+            gm, gl = engine_v2.merge_groupmax(
+                [(_host(h[0]), _host(h[1])) for h in shards])
+            better = gm * self._gacc[:, 1] > self._gacc[:, 0] * gl
+            self._gacc[better, 0] = gm[better]
+            self._gacc[better, 1] = gl[better]
+        else:
+            for h in shards:
+                np.maximum(self._gsacc, _host(h), out=self._gsacc)
 
     @staticmethod
     def _count(route, work, padded=False):
@@ -960,17 +1213,8 @@ class AlignJobs:
         def cat(k, host=_host):
             return np.concatenate([host(h[k]) for h in shards])[:B]
 
-        if kind == 'gm':
-            gm, gl = engine_v2.merge_groupmax(
-                [(_host(h[0]), _host(h[1])) for h in shards])
-            better = gm * self._gacc[:, 1] > self._gacc[:, 0] * gl
-            self._gacc[better, 0] = gm[better]
-            self._gacc[better, 1] = gl[better]
-            self._dev_grouped[chunk] = True
-            return
-        if kind == 'gsc':
-            for h in shards:
-                np.maximum(self._gsacc, _host(h), out=self._gsacc)
+        if kind in ('gm', 'gsc'):
+            self._fold(kind, shards)
             self._dev_grouped[chunk] = True
             return
         if kind == 'st':

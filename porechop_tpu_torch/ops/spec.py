@@ -39,8 +39,8 @@ def encode_many(seqs) -> list:
         return []
     codes = _CODE[np.frombuffer(''.join(seqs).encode('ascii'),
                                 dtype=np.uint8)]
-    offs = np.cumsum([len(s) for s in seqs])
-    return np.split(codes, offs[:-1])
+    ends = np.cumsum([len(s) for s in seqs]).tolist()
+    return [codes[a:b] for a, b in zip([0] + ends[:-1], ends)]
 
 
 def seqan_pct(matches: int, length: int) -> float:

@@ -11,8 +11,10 @@ entries (split_lanes), each entry launches its share on its device, and
 the results join in lane order; the group maxima merge exactly
 (engine_v2.merge_groupmax), so every result equals one entry's.  The
 planner (ops/dispatch.AlignJobs) sends every launch of a run through
-launch_shards, and so do sharded_align and detection_step, the JAX
-package's contracts over a dense batch.  A single process takes
+launch_shards, which uploads each share's lane indices, or, for a
+product of jobs, through launch_lanes, whose lanes compute their own
+indices on each device; so do sharded_align and detection_step, the JAX
+package's contracts over a dense batch, through launch_shards.  A single process takes
 local_devices() unless the caller names a device, and a rank of a
 multi-process run keeps its one card (parallel/multihost.py), as the JAX
 package's mesh spans only the local devices.
@@ -62,25 +64,37 @@ def launch_shards(kind, devices, tables, w_idx, a_idx, scoring,
     engine_v2.fused_gather_* result; for 'res', (walk, best, cell_i,
     cell_j)."""
     wlens, alens = (None, None) if lens is None else lens
-    shards = []
-    for (lo, hi), dev in zip(split_lanes(len(w_idx), len(devices)),
-                             devices):
-        if hi == lo:
-            continue
+
+    def lanes(dev, lo, hi):
         wi, ai = w_idx[lo:hi], a_idx[lo:hi]
         with spans.upload(dev):
             tabs = (*tables(dev), torch.from_numpy(wi).to(dev),
                     torch.from_numpy(ai).to(dev))
             if kind in ('gm', 'gsc'):
-                g_idx, n_groups = groups
-                tabs += (torch.from_numpy(g_idx[lo:hi]).to(dev), n_groups)
-        with spans.enqueue(wlens, wi, alens, ai):
+                tabs += (torch.from_numpy(groups[0][lo:hi]).to(dev),)
+        return tabs, spans.enqueue(wlens, wi, alens, ai)
+    return launch_lanes(kind, devices, len(w_idx), lanes, scoring,
+                        None if groups is None else groups[1])
+
+
+def launch_lanes(kind, devices, n, lanes, scoring, n_groups=None) -> list:
+    """Enqueues one launch of n lanes split over the device entries
+    (split_lanes).  lanes(dev, lo, hi) gives the inputs of lanes [lo, hi)
+    on dev, (wtab, wlens, atab, alens, w_idx, a_idx), with g_idx after
+    them for 'gm' and 'gsc', and the enqueue span (utils/spans.py) to
+    launch them in.  kind, n_groups and the result as launch_shards'."""
+    shards = []
+    for (lo, hi), dev in zip(split_lanes(n, len(devices)), devices):
+        if hi == lo:
+            continue
+        tabs, enqueue = lanes(dev, lo, hi)
+        with enqueue:
             if kind == 'gm':
-                shards.append(engine_v2.fused_gather_groupmax(*tabs,
-                                                              scoring))
+                shards.append(engine_v2.fused_gather_groupmax(
+                    *tabs, n_groups, scoring))
             elif kind == 'gsc':
                 shards.append(engine_v2.fused_gather_group_scoremax(
-                    *tabs, scoring))
+                    *tabs, n_groups, scoring))
             elif kind == 'sc':
                 shards.append(engine_v2.fused_gather_scores(*tabs, scoring))
             elif kind == 'st':

@@ -25,8 +25,8 @@ from ..adapters import (ADAPTERS, make_full_native_barcode_adapter,
                         make_old_full_rapid_barcode_adapter)
 from ..ops import spec
 from ..ops import middle
-from ..ops.dispatch import (AlignJobs, score_path_available, seqan_pct_vec,
-                            stats_path_active)
+from ..ops.dispatch import (AlignJobs, Product, score_path_available,
+                            seqan_pct_vec, stats_path_active)
 from ..ops.kernels import score_prefilter_coef, supports
 from ..utils import spans
 from ..utils.fastx import load_fasta_or_fastq
@@ -132,9 +132,9 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
         a.best_end_score = 0.0
 
     # One dense batch: every check read's two end windows against every
-    # adapter-set start/end sequence.  Pairs are built block-per-entry with
-    # vectorized fills (a Python loop per (read x set) costs more than the
-    # DP itself at --check_reads scale).
+    # adapter-set start/end sequence, handed to the planner as a product
+    # of the two axes (a list of (read x set) pairs costs more host time
+    # than the DP itself at --check_reads scale).
     windows = spec.encode_many(
         [s for read in check_reads
          for s in (read.seq[:end_size], read.seq[-end_size:])])
@@ -152,13 +152,13 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
                 adapter_seqs.append(spec.encode(seq))
             entries.append((si, side, adapter_idx[seq]))
 
-    # Progress ticks as chunks harvest.  Pairs are READ-major (job k
-    # belongs to check read k // n_entries): every window is the same rung,
-    # so the dispatcher's stable bucketing keeps chunks as contiguous job
-    # ranges and each harvested chunk completes a prefix of reads — the
-    # frontier advances DURING the phase instead of only at its end
-    # (VERDICT r4 task 5; the group-max reduction is order-agnostic, so
-    # only the progress mapping cares about pair order).
+    # Progress ticks as launches harvest.  The jobs are the product of
+    # the check reads (rows: their two windows) and the entries (columns),
+    # read-major, so each launch is a contiguous range of jobs and its
+    # harvest completes a prefix of reads: the frontier advances DURING
+    # the phase instead of only at its end (VERDICT r4 task 5).  The
+    # planner tells it each row's resolved jobs, or on the flat route the
+    # job indices (job k belongs to check read k // n_entries).
     prog = HarvestProgress(read_count, len(entries),
                            lambda k: k // max(len(entries), 1), print_dest,
                            enabled=verbosity > 0)
@@ -166,20 +166,15 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
         gm = np.zeros(len(entries), dtype=np.int64)
         gl = np.ones(len(entries), dtype=np.int64)
         if read_count:
-            R = read_count
             E = len(entries)
-            win_off = np.array([0 if side == 'start' else 1
-                                for _, side, _ in entries], np.int64)
-            ai_arr = np.array([ai for _, _, ai in entries], np.int64)
-            pairs = np.empty((R * E, 2), dtype=np.int64)
-            pairs[:, 0] = (2 * np.repeat(np.arange(R, dtype=np.int64), E)
-                           + np.tile(win_off, R))
-            pairs[:, 1] = np.tile(ai_arr, R)
+            jobs = Product(
+                np.arange(2 * read_count, dtype=np.int64).reshape(-1, 2),
+                [0 if side == 'start' else 1 for _, side, _ in entries],
+                [ai for _, _, ai in entries], np.arange(E))
             # Group-reduced execution: per (set, side) only the best identity
             # leaves the device — the per-pair results are never materialized
             # host-side (reference semantics: max over check reads of the
             # full adapter %id, nanopore_read.py:155-164).
-            gids = np.tile(np.arange(E, dtype=np.int64), R)
             coef = score_prefilter_coef(adapter_threshold,
                                         *scoring_scheme_vals)
             if (not exact_scores and coef > 0
@@ -189,25 +184,23 @@ def find_matching_adapter_sets(check_reads, verbosity, end_size,
                 # score is below coef * its adapter length provably has
                 # best identity below the threshold.  Survivors (typically
                 # the 2-10 truly-present sets) re-run exactly.
-                gsc = AlignJobs(windows, adapter_seqs, pairs,
+                gsc = AlignJobs(windows, adapter_seqs, jobs,
                                 scoring_scheme_vals,
                                 device=device).run_group_score_max(
-                                    gids, E, progress=prog)
+                                    None, E, progress=prog)
                 alens_e = np.array([len(adapter_seqs[ai])
                                     for _, _, ai in entries], np.int64)
                 surv = gsc.astype(np.float64) >= coef * alens_e
                 if surv.any():
-                    mask = surv[gids]
-                    res = AlignJobs(windows, adapter_seqs, pairs[mask],
-                                    scoring_scheme_vals,
-                                    device=device).run_group_max(
-                                        gids[mask], E)
+                    res = AlignJobs(windows, adapter_seqs,
+                                    jobs.columns(surv), scoring_scheme_vals,
+                                    device=device).run_group_max(None, E)
                     gm, gl = res['matches'], res['full_len']
             else:
-                res = AlignJobs(windows, adapter_seqs, pairs,
+                res = AlignJobs(windows, adapter_seqs, jobs,
                                 scoring_scheme_vals,
                                 device=device).run_group_max(
-                                    gids, E, progress=prog)
+                                    None, E, progress=prog)
                 gm, gl = res['matches'], res['full_len']
         if stats_merge is not None:
             gm, gl = stats_merge(gm, gl)
@@ -851,10 +844,12 @@ class HarvestProgress:
     a terminal showed nothing for the whole phase wall time).
 
     The dispatcher calls it with resolved job indices as chunks harvest;
-    `read_of` maps a job index to its read index.  A read's line prints
-    once every one of its jobs has resolved AND every earlier read's
-    lines have printed — lines are only ever emitted in increasing read
-    order, so the captured byte stream is identical to the post-hoc
+    `read_of` maps a job index to its read index.  A product of jobs
+    (ops/dispatch.Product, whose rows are the reads) calls it with read
+    indices and how many of each read's jobs resolved.  A read's line
+    prints once every one of its jobs has resolved AND every earlier
+    read's lines have printed — lines are only ever emitted in increasing
+    read order, so the captured byte stream is identical to the post-hoc
     replay (and to the reference's)."""
 
     def __init__(self, read_count, jobs_per_read, read_of, print_dest,
@@ -868,11 +863,14 @@ class HarvestProgress:
             self.remaining = np.full(read_count, jobs_per_read, np.int64)
             self.frontier = 0        # reads whose lines have printed
 
-    def __call__(self, idxs):
+    def __call__(self, idxs, counts=None):
         if not self.enabled or len(idxs) == 0:
             return
-        r = self.read_of(np.asarray(idxs, dtype=np.int64))
-        np.add.at(self.remaining, r, -1)
+        if counts is None:
+            r = self.read_of(np.asarray(idxs, dtype=np.int64))
+            np.add.at(self.remaining, r, -1)
+        else:
+            self.remaining[idxs] -= counts
         f = self.frontier
         while f < self.read_count and self.remaining[f] <= 0:
             f += 1

@@ -22,8 +22,10 @@ A job is one cli.main call.  Inside it:
   (sum of read_len x adapter_len), counted on the host from the lengths
   the caller holds (`enqueue(...)`), never read back from the card;
 - counters, summed over the job: `endtrim.pairs_decided` (the pairs
-  phase 2 decides over whole result arrays) and `endtrim.pairs_passed`
-  (those that pass and are written to their read one by one).
+  phase 2 decides over whole result arrays), `endtrim.pairs_passed`
+  (those that pass and are written to their read one by one) and
+  `planner.product_lanes` (the lanes of products of jobs whose indices
+  the devices computed, ops/dispatch.py).
 
 Each job leaves one record in a buffer of the last JOBS_KEPT jobs
 (last_jobs), also when it fails, and a summary on stderr, one `[spans]`
@@ -137,6 +139,9 @@ class _Job:
         when the caller gave no lengths for B lanes."""
         if self.lanes is None:
             return None
+        if len(self.lanes) == 2:        # enqueue_cells: counted already
+            n, needed = self.lanes
+            return needed if n == B else None
         wl, wi, al, ai = self.lanes
         w = np.asarray(wl) if wi is None else np.asarray(wl)[wi]
         a = np.asarray(al) if ai is None else np.asarray(al)[ai]
@@ -340,6 +345,13 @@ def enqueue(wlens, w_idx, alens, a_idx):
         return NOOP
     return _Span(job, 'enqueue',
                  None if wlens is None else (wlens, w_idx, alens, a_idx))
+
+
+def enqueue_cells(n, needed):
+    """enqueue's span for a launch of n lanes whose needed cells the
+    caller counted (a product of jobs, ops/dispatch.py)."""
+    job = _current()
+    return NOOP if job is None else _Span(job, 'enqueue', (n, needed))
 
 
 def upload(device):

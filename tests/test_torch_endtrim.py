@@ -408,7 +408,8 @@ def test_ties_and_boundaries_occur(monkeypatch):
 def test_counters_on_a_barcoded_run(tmp_path, monkeypatch):
     """On a small barcoded CLI run under PORECHOP_TPU_TIMING, the job's
     endtrim.pairs_decided is the phase's reads x (start + end sets) and
-    endtrim.pairs_passed the alignments its reads hold; the `[spans]`
+    endtrim.pairs_passed the alignments its reads hold, beside detection's
+    planner.product_lanes (tests/test_torch_product.py); the `[spans]`
     summary prints both."""
     path = tmp_path / 'reads.fastq'
     write_fastq(str(path), synth_barcoded(12, 600, seed=9,
@@ -436,7 +437,11 @@ def test_counters_on_a_barcoded_run(tmp_path, monkeypatch):
     (rec,) = spans.last_jobs(1)
     assert decided > 12 * 2 and passed > 0
     assert rec['counts'] == {'endtrim.pairs_decided': decided,
-                             'endtrim.pairs_passed': passed}
+                             'endtrim.pairs_passed': passed,
+                             'planner.product_lanes': 12 * sum(
+                                 bool(a.start_sequence) + bool(a.end_sequence)
+                                 for a in ADAPTERS
+                                 if '(full sequence)' not in a.name)}
     head = '[spans] job %d count ' % rec['job']
     lines = err.getvalue().splitlines()
     assert head + 'endtrim.pairs_decided %d' % decided in lines
