@@ -60,18 +60,11 @@ on two or more distinct cards (no --device, cuda:0,cuda:1) must launch
 each kernel it launches on every card, as often on each card but the
 first, the first card's surplus being the middle phase's replay (which
 does not split, as the JAX package's does not shard), and the two ranks
-run on two distinct cards.  Last, the hybrid and the
-second engine, each against the default digests: the 10 kb input at -v 0
-and -v 1 under PORECHOP_TPU_FORCE_HOST=1 (every job on the native host
-engine: no launch and no byte allocated on the card); at -v 1 with the
-size route made to engage (a threshold of 1e8 padded cells and
-PORECHOP_TPU_MIDDLE_DEVICE=0: phase 2 and the replay's small rounds on
-the native engine, detection, round 0 and the large launches on the
-card; every kernel must launch and both routes must take jobs); and at
--v 0 and -v 1 under PORECHOP_TPU_ENGINE=v1 (the stat-carrying engine on
-the card; the replay keeps the trace-bit kernel).  The 10 kb two-rank
-run (in memory) runs under PORECHOP_TPU_LOAD_STATS, and each rank must
-have built fewer reads than the input holds.  Every run prints its
+run on two distinct cards.  Last, the 10 kb input at -v 0 and -v 1
+under PORECHOP_TPU_FORCE_HOST=1, against the default digests: every job
+on the native host engine, no launch and no byte allocated on the card.
+The 10 kb two-rank run (in memory) runs under PORECHOP_TPU_LOAD_STATS,
+and each rank must have built fewer reads than the input holds.  Every run prints its
 wall, reads/s, peak device memory per card and jobs and padded cells per
 route.  After the runs, every kernel is held against its plain version
 at every (lanes, L, A) that any on-card run launched it at (the two-rank
@@ -656,20 +649,17 @@ def _routes():
     return {r: list(v) for r, v in dispatch.ROUTES.items()}
 
 
-def run_cli(cli, kernels, label, d, argv, size, on_card=True,
-            first_card_only=False):
+def run_cli(cli, kernels, label, d, argv, size, on_card=True):
     """One in-process run of the trimmer in directory d, on the card.
-    With on_card, every kernel of the path must launch (or, given a set
-    of kernel names, those) and no other, on every device that --device
-    names in argv (without it, on every card: a single process splits
-    over all of them), each trace-bit call walking inside its launch;
-    without on_card, none may, and nothing may be allocated on a card.
-    On two or more distinct cards (check_cards) each card must launch
-    every kernel that the run launches, the same number of times but for
-    the middle phase's replay, which runs on the first card alone; with
-    first_card_only (the v1 engine, which does not split either), every
-    launch must be on the first card.  Returns (its launches, its
-    trace-bit launch shapes, its stdout with d's path as <WORKDIR>)."""
+    With on_card, every kernel of the path must launch and no other, on
+    every device that --device names in argv (without it, on every card:
+    a single process splits over all of them), each trace-bit call
+    walking inside its launch; without on_card, none may, and nothing may
+    be allocated on a card.  On two or more distinct cards (check_cards)
+    each card must launch every kernel that the run launches, the same
+    number of times but for the middle phase's replay, which runs on the
+    first card alone.  Returns (its launches, its trace-bit launch
+    shapes, its stdout with d's path as <WORKDIR>)."""
     from porechop_tpu_torch.ops import dispatch
     kernels.reset_launches()
     dispatch.reset_routes()
@@ -706,7 +696,7 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True,
         '%s %d, %.4g' % (r, n, c) for r, (n, c) in routes.items()),
           flush=True)
     if on_card:
-        want = set(PATH_KERNELS) if on_card is True else set(on_card)
+        want = set(PATH_KERNELS)
         idle = [k for k in sorted(want) if launches[k] == 0]
         if idle:
             raise AssertionError('%s never launched %s' % (label, idle))
@@ -715,8 +705,6 @@ def run_cli(cli, kernels, label, d, argv, size, on_card=True,
             raise AssertionError('%s launched %s' % (label, extra))
         named = (['cuda:%d' % k for k in _cards()] if '--device' not in argv
                  else argv[argv.index('--device') + 1].split(','))
-        if first_card_only:
-            named = named[:1]
         cards = sorted(set(named), key=named.index)
         stray = {dev for _, dev in kernels.DEVICE_LAUNCHES} - set(cards)
         if stray:
@@ -816,13 +804,12 @@ def _check_text(label, d, text, want_sha):
 
 def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
                   stream=None, split=False, flags=(), verbosities=(0, 1),
-                  on_card=True, first_card_only=False):
+                  on_card=True):
     """One input (work/reads.fastq) through the trimming run to -o, on the
     card, at -v 0 and -v 1, in memory or with --stream, with flags added;
     with split, each run must cut at least one trace-bit launch into
-    column chunks; without on_card, no run may launch a kernel;
-    first_card_only as run_cli's.  Returns {run label: launches of that
-    run}."""
+    column chunks; without on_card, no run may launch a kernel.  Returns
+    {run label: launches of that run}."""
     mode = '' if stream is None else ' --stream %d' % stream
     mode += ''.join(' ' + f for f in flags)
     launches = {}
@@ -836,7 +823,7 @@ def run_main_path(cli, kernels, what, work, size, out_sha, stdout_sha,
             argv += ['--stream', str(stream)]
         launches[label], tiled, text = run_cli(cli, kernels, label, d,
                                                argv + list(flags), size,
-                                               on_card, first_card_only)
+                                               on_card)
         got_out = _sha(d / out)
         if got_out != out_sha[v]:
             raise AssertionError('%s output FASTQ differs from the JAX '
@@ -1148,15 +1135,10 @@ def one_card_runs(cli, kernels, inputs):
     return entry_runs(cli, kernels, ['--device', 'cuda:0'], inputs)
 
 
-def hybrid_runs(cli, kernels, work, size):
+def forced_host_runs(cli, kernels, work, size):
     """The 10 kb input against the default digests under
     PORECHOP_TPU_FORCE_HOST=1 (-v 0, -v 1: no launch, nothing on the
-    card, every job on the host route), with the size route made to
-    engage (-v 1: every kernel launching, both routes taking jobs) and
-    under PORECHOP_TPU_ENGINE=v1 (-v 0, -v 1: the v1 engine on the card,
-    the replay's trace-bit calls, forward_walk, the only launches).
-    Returns {run label: launches}."""
-    from porechop_tpu_torch.ops import dispatch
+    card, every job on the host route).  Returns {run label: launches}."""
     runs = {}
     with environment(PORECHOP_TPU_FORCE_HOST='1'):
         for v in (0, 1):
@@ -1165,25 +1147,6 @@ def hybrid_runs(cli, kernels, work, size):
                                       verbosities=(v,), on_card=False))
             if not _routes()['host'][0]:
                 raise AssertionError('a forced-host run took no host jobs')
-    saved = dispatch._HYBRID_CELLS
-    dispatch._HYBRID_CELLS = 100_000_000
-    try:
-        with environment(PORECHOP_TPU_MIDDLE_DEVICE='0'):
-            runs.update(run_main_path(cli, kernels, '10 kb hybrid 1e8',
-                                      work, size, OUT_SHA, STDOUT_SHA,
-                                      verbosities=(1,)))
-    finally:
-        dispatch._HYBRID_CELLS = saved
-    routes = _routes()
-    if not (routes['native'][0] and routes['device'][0]):
-        raise AssertionError('the hybrid run did not take both routes: %s'
-                             % routes)
-    # The v1 engine runs on the first card, and so does the replay.
-    with environment(PORECHOP_TPU_ENGINE='v1'):
-        runs.update(run_main_path(cli, kernels, '10 kb v1', work, size,
-                                  OUT_SHA, STDOUT_SHA,
-                                  on_card={'forward_walk'},
-                                  first_card_only=True))
     return runs
 
 
@@ -1313,7 +1276,7 @@ def on_card_runs(cli, kernels, shapes):
         runs.update(run_entries(cli, kernels, entries, inputs, one,
                                 one_flag))
 
-    runs.update(hybrid_runs(cli, kernels, work, size))
+    runs.update(forced_host_runs(cli, kernels, work, size))
     return runs, (work, size)
 
 

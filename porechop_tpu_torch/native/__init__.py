@@ -1,7 +1,6 @@
 """The port's host engine (counterpart of porechop_tpu/native/__init__.py):
-for the Gotoh schemes the CUDA kernels refuse, for launches too small to
-pay for the card (the planner's size route, ops/dispatch.py), and for
-every job under PORECHOP_TPU_FORCE_HOST.
+for the Gotoh schemes the CUDA kernels refuse, and for every Gotoh job
+under PORECHOP_TPU_FORCE_HOST (the planner's host route, ops/dispatch.py).
 
 The kernels take only gap_open < gap_ext (ops/kernels.supports).  SeqAn
 aligns every scheme with gap_open != gap_ext under Gotoh's affine profile,
@@ -23,8 +22,7 @@ The library builds with g++ at first use into build/native/ beside the
 package, named by a digest of the sources and the host CPU (it is built
 with -march=native), through a per-process temporary file and os.replace
 so that concurrent processes never collide.  Without g++, or when the
-build fails, it raises and names the scheme; only the size route, whose
-jobs the card can run, gives way to the card then (available()).
+build fails, it raises and names the scheme.
 """
 
 from __future__ import annotations
@@ -47,7 +45,6 @@ FIELDS = ('read_start', 'read_end', 'adapter_start', 'adapter_end',
           'raw_score', 'matches', 'aligned_len', 'full_len')
 
 _LIB = None
-_FAILED = None      # why the library did not build or load, once it did not
 
 
 def _host_key() -> bytes:
@@ -109,19 +106,6 @@ def library(scoring=None):
             fn.restype = None
         _LIB = lib
     return _LIB
-
-
-def available() -> bool:
-    """Whether the engine loads, building it at first use; a library that
-    failed to build or load is not tried again in this process.  For the
-    planner's size route, which gives way to the card without it."""
-    global _FAILED
-    if _LIB is None and _FAILED is None:
-        try:
-            library()
-        except (OSError, RuntimeError) as e:
-            _FAILED = e
-    return _LIB is not None
 
 
 def _concat(seqs):

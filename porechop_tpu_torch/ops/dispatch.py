@@ -8,37 +8,22 @@ Window lengths snap to a geometric ladder and adapters pad to their rung,
 so launch shapes are stable across runs; launches are chunked to bound
 device memory.
 
-The route is chosen by the scoring scheme, then by launch size:
+The route is chosen by the scoring scheme and PORECHOP_TPU_FORCE_HOST
+alone:
 - gap_open < gap_ext (kernels.supports): the DP kernels, on the device
   entries the caller names (default the card);
-- any other gap_open != gap_ext: the native Gotoh engine on the host
-  (porechop_tpu_torch/native), in one threaded batch call;
-- gap_open == gap_ext (linear): the executable spec (spec.align_linear),
-  one job at a time.
-The size route (porechop_tpu/ops/dispatch.py's hybrid) is off unless the
-caller sets PORECHOP_TPU_HYBRID_CELLS: then a kernel-scheme launch of
-fewer padded cells runs on the native engine instead, in one threaded
-batch on a worker thread beside the device launches, and the native queue
-also takes power-of-two slices of device chunks where it would otherwise
-finish first (_share_with_native).  PORECHOP_TPU_MERGE_CELLS, also off
-unless set, merges same-rung device work into a wider adapter rung where
-that saves launches (_merge_adapter_rungs).  Both change launch shapes and
-counts; on the H100 neither paid end to end in paired runs (PERF.md), so
-neither is on by default, on any device.  If the native engine fails to
-load, its chunks run on the device entries instead (with a note on
-stderr); a kernel that fails still raises.
-PORECHOP_TPU_FORCE_HOST=1 runs every job on the host (Gotoh schemes on
-the native engine, linear ones through the spec) and touches no CUDA
-device; PORECHOP_TPU_NO_NATIVE=1 turns the size route off.
-PORECHOP_TPU_ENGINE=v1 sends every device chunk through the stat-carrying
-engine (ops/engine_v1.run_jobs) on the first device entry.
+- any other scheme, or every scheme under PORECHOP_TPU_FORCE_HOST (which
+  touches no CUDA device), the host route (_host_batch): the native Gotoh
+  engine (porechop_tpu_torch/native) in one threaded batch call where
+  gap_open != gap_ext, the executable spec (spec.align_linear) one job at
+  a time where gap_open == gap_ext.
 PORECHOP_TPU_TIMING=1 prints the planner's `[timing]` lines on stderr, in
 the JAX package's words: prefilter survivors, launches enqueued and
-harvested (padded cells/s), the work share and native batches; inside a
-CLI job it also records the planner's spans (utils/spans.py: `plan`
-around the public run methods, `host_route`, `upload` and, through
-mesh.launch_lanes, `enqueue`; `wait` at every copy back) and counts a
-product's lanes (`planner.product_lanes`).
+harvested (padded cells/s) and native batches; inside a CLI job it also
+records the planner's spans (utils/spans.py: `plan` around the public
+run methods, `host_route`, `upload` and, through mesh.launch_lanes,
+`enqueue`; `wait` at every copy back) and counts a product's lanes
+(`planner.product_lanes`).
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
 only decides whether the kernels or their plain versions run.
@@ -55,8 +40,8 @@ A Product of jobs (the detection phase's check reads x adapter-set
 sides) runs the group modes axis by axis: the same launches as its flat
 pairs, but its tables and axes go to the devices once and each launch
 computes its lane indices there (mesh.launch_lanes), so no per-pair
-array is built, sorted or uploaded.  Every other route (host, v1, size
-route, rung merge, rungs past the group kernels) takes its flat pairs.
+array is built, sorted or uploaded.  The host route, the other modes and
+rungs past the group kernels take its flat pairs.
 """
 
 from __future__ import annotations
@@ -64,7 +49,6 @@ from __future__ import annotations
 import os
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -72,7 +56,7 @@ import torch
 from .. import native
 from ..parallel import mesh
 from ..utils import spans
-from . import engine_v1, engine_v2, kernels, spec
+from . import engine_v2, kernels, spec
 
 # Window-length ladder: fine-grained at the small end (end windows), then
 # geometric.
@@ -90,23 +74,10 @@ _MIN_LANES = 32
 
 _A_LADDER = [16, 24, 32, 48, 64, 96, 128, 192, 256]
 
-# The size route's threshold and the adapter-rung merge's price of one
-# launch, in padded cells, under the JAX package's variable names
-# (porechop_tpu/ops/dispatch.py:51-55, :551).  0, the default, turns each
-# off.  The H100's measured break-even (breakeven_torch.py: NVIDIA H100
-# 80GB HBM3, 700.00 W, 8 host cores) was 1.35e7 cells for the bitless
-# modes and, while the walk was plain torch, none or 8.2e8 for a
-# trace-bit launch with its walk (1.06e7-1.21e7 with the walk kernel),
-# and a merge price of 2.75e7; paired runs at those values showed no gain
-# over both off (PERF.md section 6), so they are not defaults.
-_HYBRID_CELLS = int(os.environ.get('PORECHOP_TPU_HYBRID_CELLS', 0))
-_MERGE_CELLS = int(os.environ.get('PORECHOP_TPU_MERGE_CELLS', 0))
-
 # Jobs and padded cells per route since reset_routes(): 'device' (kernel
-# launches, padded lanes), 'native' (the size route: jobs at their rungs'
-# cells) and 'host' (schemes the kernels refuse, PORECHOP_TPU_FORCE_HOST:
-# jobs at their rungs' cells).
-ROUTES = {'device': [0, 0], 'native': [0, 0], 'host': [0, 0]}
+# launches, padded lanes) and 'host' (schemes the kernels refuse,
+# PORECHOP_TPU_FORCE_HOST: jobs at their rungs' cells).
+ROUTES = {'device': [0, 0], 'host': [0, 0]}
 
 
 def reset_routes() -> None:
@@ -137,8 +108,7 @@ def score_path_available(scoring=(3, -6, -5, -2)) -> bool:
     if not force_host():
         return kernels.supports(scoring)
     _, _, gap_open, gap_ext = (int(x) for x in scoring)
-    return not (os.environ.get('PORECHOP_TPU_NO_NATIVE')
-                or gap_open == gap_ext)
+    return gap_open != gap_ext
 
 
 def stats_path_active(scoring=(3, -6, -5, -2), prefilter=None) -> bool:
@@ -198,14 +168,18 @@ def _noop_progress(*resolved):
     pass
 
 
-def _bucket_len(n: int) -> int:
+def bucket_len(n: int) -> int:
+    """The window rung of length n: the least _LADDER rung that holds it,
+    past the ladder the next multiple of 65,536."""
     for rung in _LADDER:
         if n <= rung:
             return rung
     return ((n + 65535) // 65536) * 65536
 
 
-def _bucket_adapter_len(n: int) -> int:
+def bucket_adapter_len(n: int) -> int:
+    """The adapter rung of length n: the least _A_LADDER rung that holds
+    it, past the ladder the next multiple of 128."""
     for rung in _A_LADDER:
         if n <= rung:
             return rung
@@ -232,7 +206,7 @@ def bits_lanes(lb: int, amax: int) -> int:
     return per
 
 
-def _bucket_lanes(n: int) -> int:
+def bucket_lanes(n: int) -> int:
     """Snap the batch (lane) count to a power of two so shrinking active
     sets reuse launch shapes."""
     b = _MIN_LANES
@@ -243,7 +217,7 @@ def _bucket_lanes(n: int) -> int:
 
 def _pad_cells(lb: int, amax: int, n: int) -> int:
     """Padded DP cells of an n-lane launch at rungs (lb, amax)."""
-    return _bucket_lanes(n) * (lb + 1) * amax if n else 0
+    return bucket_lanes(n) * (lb + 1) * amax if n else 0
 
 
 def _buckets(todo, pw, pa) -> dict:
@@ -317,7 +291,7 @@ class Product:
 
 
 def _rungs(lens, rung_of) -> np.ndarray:
-    """rung_of (_bucket_len, _bucket_adapter_len) of every length."""
+    """rung_of (bucket_len, bucket_adapter_len) of every length."""
     u, inv = np.unique(lens, return_inverse=True)
     return np.array([rung_of(int(n)) for n in u], dtype=np.int64)[inv]
 
@@ -557,8 +531,7 @@ class AlignJobs:
         failed |= res['read_start'] == -1
 
         # Lanes that ran a full alignment (the native engine's full entry
-        # point, rungs without a stats path, the v1 engine) carry full
-        # results already.
+        # point, rungs without a stats path) carry full results already.
         host_pct = seqan_pct_vec(res['matches'], res['full_len'])
         host_ok = ~failed & (res['full_len'] > 0) & ~score_lanes
         full_pct = np.where(host_ok, host_pct, 0.0)
@@ -592,7 +565,7 @@ class AlignJobs:
         read_end_incl, adapter_start, adapter_end).
 
         progress: optional callable(job_indices) invoked as groups of jobs
-        resolve (degenerate fixes, each chunk harvest, the native batch)."""
+        resolve (degenerate fixes, each chunk harvest, the host batch)."""
         progress = spans.outside(_noop_progress if progress is None
                                  else progress)
         P = len(self.pairs)
@@ -625,83 +598,29 @@ class AlignJobs:
             progress(todo)
             return self._package(out)
 
-        hybrid = (_HYBRID_CELLS
-                  if _HYBRID_CELLS > 0 and self._native_available() else 0)
-        if _MERGE_CELLS > 0:
-            self._merge_adapter_rungs(buckets, hybrid, _MERGE_CELLS)
-        small_meta = []   # (lb, amax, chunk) for the native host engine
-        device_work = []  # (lb, amax, chunk) launches
-        for (lb, amax), idxs in sorted(buckets.items()):
-            for chunk in self._chunk_split(np.asarray(idxs), lb, amax):
-                if _pad_cells(lb, amax, len(chunk)) < hybrid:
-                    small_meta.append((lb, amax, chunk))
-                else:
-                    device_work.append((lb, amax, chunk))
-        if hybrid > 0 and device_work:
-            device_work = self._share_with_native(small_meta, device_work)
-
+        work = [(lb, amax, chunk)
+                for (lb, amax), idxs in sorted(buckets.items())
+                for chunk in self._chunk_split(np.asarray(idxs), lb, amax)]
+        self._count('device', work, padded=True)
         # Per-rung job index lists, so table uploads dedup across buckets
         # sharing a rung.
         rung_w = {}
         rung_a = {}
-        for lb, amax, chunk in device_work:
+        for lb, amax, chunk in work:
             rung_w.setdefault(lb, []).append(chunk)
             rung_a.setdefault(amax, []).append(chunk)
         tables = {}
-        # The native batch runs on a worker thread from before the first
-        # launch to after the last harvest, which waits on this thread for
-        # the launches' device work; the engine's ctypes call drops the
-        # GIL.
-        small = (np.concatenate([c for _, _, c in small_meta])
-                 if small_meta else None)
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            host = (pool.submit(self._native_batch, small)
-                    if small is not None else None)
-            self._run_device(device_work, tables, rung_w, rung_a, out,
-                             progress)
-            res = host.result() if host is not None else None
-        if res is not None:
-            self._count('native', small_meta)
-            self._scatter_host(small, res, out)
-            progress(small)
-        elif small is not None:
-            # The native engine failed: its chunks run on the device
-            # entries, and the rung tables grow to cover them.
-            for lb, amax, chunk in small_meta:
-                rung_w.setdefault(lb, []).append(chunk)
-                rung_a.setdefault(amax, []).append(chunk)
-            self._run_device(small_meta, tables, rung_w, rung_a, out,
-                             progress)
-        return self._package(out)
 
-    def _run_device(self, work, tables, rung_w, rung_a, out, progress):
-        """The (lb, amax, chunk) launches of `work` on the device entries:
-        every launch enqueued before any harvest (CUDA launches are
-        asynchronous, so they run back to back while the host moves on),
-        or under PORECHOP_TPU_ENGINE=v1 each chunk through the v1 engine."""
-        self._count('device', work, padded=True)
-        t0 = time.perf_counter()
-        if engine_v1.selected():
-            # Each chunk runs to its end here, as the JAX package's
-            # ungathered launches do: one line, no harvest.
-            for lb, amax, chunk in work:
-                res = engine_v1.run_jobs(self.windows, self.adapters,
-                                         self.pairs[chunk], lb, amax,
-                                         self.scoring, self.device)
-                for f in out:
-                    out[f][chunk] = res[f]
-                progress(chunk)
-            if timing() and work:
-                _timing_line('enqueued %d launches in %.3fs'
-                             % (len(work), time.perf_counter() - t0))
-            return
         def launch(lb, amax, chunk):
             return self._launch_chunk(chunk, lb, amax, tables, rung_w, rung_a)
 
         def harvest(lb, amax, chunk, handle):
             self._harvest(chunk, handle, out)
             progress(chunk)
+        # CUDA launches are asynchronous: every launch is enqueued before
+        # any harvest, so they run back to back while the host moves on.
         self._launch_all(work, launch, harvest)
+        return self._package(out)
 
     @staticmethod
     def _launch_all(work, launch, harvest):
@@ -730,19 +649,16 @@ class AlignJobs:
 
     def _product_lens(self, max_rung):
         """Each product row's window length where the product runs axis by
-        axis, else None: on the kernels (not the host route, nor the v1
-        engine, nor with the size route or the rung merge set, which plan
-        flat chunks), with each row's windows of one length (its jobs share
-        a rung) and no window rung past max_rung."""
-        if (force_host() or not kernels.supports(self.scoring)
-                or engine_v1.selected() or _HYBRID_CELLS > 0
-                or _MERGE_CELLS > 0):
+        axis, else None: on the kernels (not the host route), with each
+        row's windows of one length (its jobs share a rung) and no window
+        rung past max_rung."""
+        if force_host() or not kernels.supports(self.scoring):
             return None
         rw = self.product.row_windows
         wl = np.array([len(self.windows[k]) for k in rw.ravel()],
                       dtype=np.int64).reshape(rw.shape)
         if (wl != wl[:, :1]).any() or (
-                wl.size and _bucket_len(int(wl.max())) > max_rung):
+                wl.size and bucket_len(int(wl.max())) > max_rung):
             return None
         return wl[:, 0] if rw.shape[1] else np.zeros(len(rw), np.int64)
 
@@ -770,8 +686,8 @@ class AlignJobs:
             progress(np.nonzero(dead)[0], dead[dead > 0])
         live_r = np.nonzero(row_len > 0)[0]
         live_c = np.nonzero(col_len > 0)[0]
-        rung_r = _rungs(row_len[live_r], _bucket_len)
-        rung_c = _rungs(col_len[live_c], _bucket_adapter_len)
+        rung_r = _rungs(row_len[live_r], bucket_len)
+        rung_c = _rungs(col_len[live_c], bucket_adapter_len)
         rows = {int(lb): live_r[rung_r == lb] for lb in np.unique(rung_r)}
         cols = {int(am): live_c[rung_c == am] for am in np.unique(rung_c)}
 
@@ -866,7 +782,7 @@ class AlignJobs:
             needed = cells(hi) - cells(lo) + max(0, hi - max(lo, B))
             return ((wtab, wlen, atab, alen) + idx,
                     spans.enqueue_cells(hi - lo, needed))
-        return mesh.launch_lanes(kind, self.devices, _bucket_lanes(B),
+        return mesh.launch_lanes(kind, self.devices, bucket_lanes(B),
                                  shard, self.scoring, n_groups)
 
     def _fold(self, kind, shards):
@@ -888,143 +804,9 @@ class AlignJobs:
         """Adds the (lb, amax, jobs) work to ROUTES[route]: jobs, and cells
         at the rungs (lanes padded to the launch width when `padded`)."""
         for lb, amax, chunk in work:
-            n = _bucket_lanes(len(chunk)) if padded else len(chunk)
+            n = bucket_lanes(len(chunk)) if padded else len(chunk)
             ROUTES[route][0] += len(chunk)
             ROUTES[route][1] += n * (lb + 1) * amax
-
-    # The work-share model's rates, cells/s
-    # (porechop_tpu/ops/dispatch.py:594-620), used only when the size route
-    # is on: the native queue runs beside the device launches, so the model
-    # splits a run's work to make both finish together.  H100 defaults
-    # (breakeven_torch.py on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-    # section 6): each mode's effective rate through the planner (tables,
-    # upload, launch, walk, harvest) at its largest measured call, where
-    # the fixed cost weighs least: score 7.15e10 at 16,384 x 10,240 x 32,
-    # stats 7.29e10 at 1,024 x 10,240 x 32 (group max, which shares it,
-    # 2.63e10 at 1,048,576 x 150 x 24), trace bits with the walk 2.38e10 at
-    # 2,048 x 16,384 x 32.  The device rate stands for one card: with
-    # device entries on several cards it underestimates them (set
-    # PORECHOP_TPU_DEV_CELLS_S* to their sum).  The native rate scales with
-    # the threads the size route runs on (native.threads() - 1) from
-    # align_simd_batch's rate per thread at rung 150, the lower of two
-    # calls on 8 threads (2.18e9 / 8).
-    _HOST_CELLS_S = float(os.environ.get(
-        'PORECHOP_TPU_HOST_CELLS_S',
-        2.18e9 / 8 * max(1, native.threads() - 1)))
-    _DEV_CELLS_S = float(os.environ.get('PORECHOP_TPU_DEV_CELLS_S',
-                                        '2.38e10'))
-    _DEV_CELLS_S_STATS = float(os.environ.get(
-        'PORECHOP_TPU_DEV_CELLS_S_STATS', '7.29e10'))
-    _DEV_CELLS_S_SCORE = float(os.environ.get(
-        'PORECHOP_TPU_DEV_CELLS_S_SCORE', '7.15e10'))
-
-    def _dev_rate(self) -> float:
-        """Device cells/s for the work-share model under the active mode."""
-        if self._score_only:
-            return self._DEV_CELLS_S_SCORE
-        if self._stats_only or self._group is not None:
-            return self._DEV_CELLS_S_STATS
-        return self._DEV_CELLS_S
-
-    def _share_with_native(self, small_meta, device_work):
-        """Balances one run's work across both engines
-        (porechop_tpu/ops/dispatch.py:622-678): diverts job slices from
-        device-bound chunks to the native queue so that the two finish
-        together under the rate model (minimise max(device cells / device
-        rate, native cells / host rate)).  Greedy over quantised moves: a
-        device chunk can only shrink to a power-of-two lane count (any
-        other count pads straight back up) or leave entirely.  Returns the
-        trimmed device_work; diverted jobs are appended to small_meta."""
-        rh, rd = self._HOST_CELLS_S, self._dev_rate()
-        kept = list(device_work)
-        c_dev = float(sum(_pad_cells(lb, amax, len(c))
-                          for lb, amax, c in kept))
-        # The native side pays real (unpadded) lanes at the rungs' cells.
-        c_host = float(sum(len(c) * (lb + 1) * amax
-                           for lb, amax, c in small_meta))
-        while True:
-            wall = max(c_dev / rd, c_host / rh)
-            best = None
-            for n, (lb, amax, chunk) in enumerate(kept):
-                jc = (lb + 1) * amax
-                L = len(chunk)
-                keeps = {0}
-                p = _bucket_lanes(L) // 2
-                while p >= _MIN_LANES:
-                    if p < L:
-                        keeps.add(p)
-                    p //= 2
-                for keep in keeps:
-                    nd = c_dev - _pad_cells(lb, amax, L) \
-                        + _pad_cells(lb, amax, keep)
-                    nh = c_host + (L - keep) * jc
-                    w = max(nd / rd, nh / rh)
-                    if w < wall - 1e-9 and (best is None or w < best[0]):
-                        best = (w, n, keep)
-            if best is None:
-                break
-            _, n, keep = best
-            lb, amax, chunk = kept[n]
-            c_dev += _pad_cells(lb, amax, keep) \
-                - _pad_cells(lb, amax, len(chunk))
-            c_host += (len(chunk) - keep) * (lb + 1) * amax
-            small_meta.append((lb, amax, chunk[keep:]))
-            if keep:
-                kept[n] = (lb, amax, chunk[:keep])
-            else:
-                kept.pop(n)
-        if timing() and c_host:
-            _timing_line('work-share: %.2e cells device, %.2e native'
-                         % (c_dev, c_host))
-        return kept
-
-    def _merge_adapter_rungs(self, buckets, hybrid, merge) -> None:
-        """Merges same-window-rung, device-bound work whose adapter rungs
-        differ into the widest rung among them, when the extra adapter
-        padding costs less than `merge` padded cells per launch saved
-        (porechop_tpu/ops/dispatch.py:680-733).  Padding an adapter beyond
-        its length is free for correctness (rows past adapter_len are
-        frozen).  Device-boundness is judged on the post-split chunks that
-        run() routes by (cells >= hybrid): a native-bound tail chunk of a
-        large bucket stays behind in its own (lb, amax) bucket."""
-        by_lb = {}
-        for (lb, amax), idxs in buckets.items():
-            by_lb.setdefault(lb, []).append((amax, idxs))
-        for lb, lst in by_lb.items():
-            cand = []     # (amax, device-bound idxs, n device chunks)
-            native_rest = {}
-            for amax, idxs in lst:
-                dev_chunks, nat_chunks = [], []
-                for chunk in self._chunk_split(np.asarray(idxs), lb, amax):
-                    if _pad_cells(lb, amax, len(chunk)) < hybrid:
-                        nat_chunks.append(chunk)
-                    else:
-                        dev_chunks.append(chunk)
-                if dev_chunks:
-                    cand.append((amax, np.concatenate(dev_chunks),
-                                 len(dev_chunks)))
-                native_rest[amax] = (np.concatenate(nat_chunks)
-                                     if nat_chunks else None)
-            if len(cand) < 2:
-                continue
-            target = max(amax for amax, _, _ in cand)
-            extra = sum(_bucket_lanes(len(didx)) * (lb + 1) * (target - amax)
-                        for amax, didx, _ in cand if amax != target)
-            merged_len = sum(len(didx) for _, didx, _ in cand)
-            n_merged = -(-merged_len // self._per_launch(lb, target))
-            saved = sum(n for _, _, n in cand) - n_merged
-            if saved <= 0 or extra >= saved * merge:
-                continue
-            merged = np.concatenate([didx for _, didx, _ in cand])
-            for amax, _, _ in cand:
-                rest = native_rest[amax]
-                if rest is not None and amax != target:
-                    buckets[(lb, amax)] = rest
-                else:
-                    del buckets[(lb, amax)]
-            if native_rest.get(target) is not None:
-                merged = np.concatenate([merged, native_rest[target]])
-            buckets[(lb, target)] = np.sort(merged)
 
     def _is_groupmax_rung(self, lb) -> bool:
         """Chunks of this window rung launch through the group max."""
@@ -1050,33 +832,8 @@ class AlignJobs:
         for lo in range(0, len(idxs), per_launch):
             yield idxs[lo:lo + per_launch]
 
-    @staticmethod
-    def _native_available() -> bool:
-        """Whether the size route may use the native engine: not turned
-        off (PORECHOP_TPU_NO_NATIVE) and the library loads (built with
-        g++ at first use)."""
-        return (not os.environ.get('PORECHOP_TPU_NO_NATIVE')
-                and native.available())
-
-    def _native_batch(self, todo):
-        """The size route's jobs `todo` (a kernel scheme, so Gotoh) on the
-        native engine: _host_batch's rows, or None when the engine returns
-        nothing or its library fails to load (the caller then runs them on
-        the device entries).  It runs beside this process's launches,
-        walks and harvests, so it leaves their thread one core."""
-        try:
-            res = self._host_batch(todo, max(1, native.threads() - 1))
-        except OSError as e:
-            res, why = None, 'failed to load (%s)' % e
-        else:
-            why = 'returned nothing'
-        if res is None:
-            print('porechop_tpu_torch: the native engine %s; its %d jobs '
-                  'run on the device' % (why, len(todo)), file=sys.stderr)
-        return res
-
     @spans.timed('host_route')
-    def _host_batch(self, todo, n_threads=None):
+    def _host_batch(self, todo):
         """The jobs `todo` on the host route (schemes the kernels refuse,
         PORECHOP_TPU_FORCE_HOST; porechop_tpu/ops/dispatch.py:891-989):
         Gotoh schemes on the native engine in one threaded batch call
@@ -1094,7 +851,7 @@ class AlignJobs:
             res = native.align_batch(
                 windows, adapters, np.column_stack([wi, ai]), self.scoring,
                 entry=('align_simd_scores' if self._score_only
-                       else 'align_simd_batch'), n_threads=n_threads)
+                       else 'align_simd_batch'))
             if timing() and res is not None:
                 dt = time.perf_counter() - t0
                 cells = sum(len(windows[w]) * len(adapters[a])
@@ -1124,22 +881,13 @@ class AlignJobs:
         for c, f in enumerate(native.FIELDS):
             out[f][todo] = res[:, c]
 
-    def _table(self, tables, side, rung, chunks, chunk):
+    def _table(self, tables, side, rung, chunks):
         """The deduplicated table of the sequences that the rung's chunks
         reference, plus one dummy row (a single 'A') that pad lanes use:
         (rows, lens) as host tensors, the host lens, and the map from
-        sequence index to row.  Built once per rung, and again (with its
-        device copies) when a chunk that joined the rung late, pushed back
-        from the native engine, names a sequence it lacks: the map would
-        send that lane to the dummy row."""
+        sequence index to row.  Built once per rung."""
         seqs, col = ((self.windows, 0) if side == 'w'
                      else (self.adapters, 1))
-        if (side, rung) in tables:
-            row_of = tables[(side, rung)][3]
-            if (row_of[self.pairs[chunk, col]] == len(
-                    tables[(side, rung)][2]) - 1).any():
-                for key in [k for k in tables if k[:2] == (side, rung)]:
-                    del tables[key]
         if (side, rung) not in tables:
             seen = np.zeros(len(seqs), dtype=bool)
             seen[self.pairs[np.concatenate(chunks), col]] = True
@@ -1165,7 +913,7 @@ class AlignJobs:
         (mesh.launch_shards).  Returns (kind, per-shard handles, the lanes'
         window and adapter lengths) for _harvest."""
         B = len(chunk)
-        Bp = _bucket_lanes(B)
+        Bp = bucket_lanes(B)
         if self._is_groupmax_rung(lb):
             kind = 'gm'
         elif not self._is_stats_rung(lb):
@@ -1174,10 +922,9 @@ class AlignJobs:
             kind = 'gsc'
         else:
             kind = 'sc' if self._score_only else 'st'
-        wtab, wlen, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb],
-                                                  chunk)
+        wtab, wlen, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb])
         atab, alen, alen_host, amap = self._table(tables, 'a', amax,
-                                                  rung_a[amax], chunk)
+                                                  rung_a[amax])
         # Lanes past B are pad lanes, on the dummy rows.
         w_idx = np.full(Bp, wtab.shape[0] - 1, dtype=np.int64)
         a_idx = np.full(Bp, atab.shape[0] - 1, dtype=np.int64)

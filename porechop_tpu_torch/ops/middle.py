@@ -24,18 +24,14 @@ Lanes do not see each other, so the results are those of one launch; a
 set that fits one launch at its longest read's rung runs in one, as in the
 JAX package.
 
-Routing (porechop_tpu/ops/middle.py:44-66): phases.
-find_adapters_in_read_middles uses this runner when the first replay
-round's padded cells clear the planner's hybrid threshold (the rule that
-sends any launch to the device), or when PORECHOP_TPU_MIDDLE_DEVICE=1
-forces it; =0 forces the host rounds (AlignJobs, whose size route then
-decides per launch).  Under PORECHOP_TPU_FORCE_HOST the replay is always
-on the host.
+Routing (replays_on_device): phases.find_adapters_in_read_middles uses
+this runner under a scheme the kernels take, unless
+PORECHOP_TPU_FORCE_HOST; otherwise it replays in host rounds through
+AlignJobs's host route.  Both take each round's decisions from
+replay_step.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -44,31 +40,25 @@ from ..utils import spans
 from . import dispatch, engine_v2, kernels
 
 
-def replay_mode() -> str:
-    """'device', 'host', or 'auto' (the threshold rule)."""
-    v = os.environ.get('PORECHOP_TPU_MIDDLE_DEVICE', '').strip()
-    if v == '1':
-        return 'device'
-    if v == '0':
-        return 'host'
-    return 'auto'
+def replays_on_device(scoring) -> bool:
+    """Whether the middle phase's replay runs on the device entries
+    (ReplayRunner): under a scheme the kernels take (kernels.supports),
+    unless PORECHOP_TPU_FORCE_HOST.  Otherwise it runs in host rounds, as
+    the planner's host route would run them."""
+    return not dispatch.force_host() and kernels.supports(scoring)
 
 
-def should_use_device(n_lanes: int, max_len: int, max_alen: int) -> bool:
-    """Whether a replay set of n_lanes reads (the longest max_len, the
-    adapters up to max_alen) replays on the device entries: by
-    PORECHOP_TPU_MIDDLE_DEVICE, else when one round's padded cells clear
-    dispatch._HYBRID_CELLS, exactly when round 0 itself would have sent
-    such a launch to the device.  Never under PORECHOP_TPU_FORCE_HOST."""
-    if dispatch.force_host():
-        return False
-    mode = replay_mode()
-    if mode != 'auto':
-        return mode == 'device'
-    lb = dispatch._bucket_len(max_len)
-    amax = dispatch._bucket_adapter_len(max_alen)
-    cells = dispatch._bucket_lanes(n_lanes) * (lb + 1) * amax
-    return cells >= dispatch._HYBRID_CELLS
+def replay_step(full_pct, adapter, threshold, n_adapters):
+    """One replay round's decisions for its lanes (reference
+    nanopore_read.py:221-243), from each lane's full-adapter identity
+    full_pct against its adapter index `adapter`: a hit (full_pct >=
+    threshold) masks the read and retries the same adapter; a miss moves
+    on to the next adapter; a miss on the last adapter finishes the read.
+    Returns (hit, next adapter, live): bool, int and bool arrays, a lane
+    with live False being finished."""
+    hit = np.asarray(full_pct) >= threshold
+    nxt = np.where(hit, adapter, np.asarray(adapter) + 1)
+    return hit, nxt, nxt < n_adapters
 
 
 class _Launch:
@@ -77,7 +67,7 @@ class _Launch:
 
     def __init__(self, reads, lanes, L, dev):
         self.lanes = lanes                  # indices into the replay set
-        self.Bp = dispatch._bucket_lanes(len(lanes))
+        self.Bp = dispatch.bucket_lanes(len(lanes))
         mat = np.full((self.Bp, L), 4, np.int8)
         rl = np.ones(self.Bp, np.int32)
         for k, n in enumerate(lanes):
@@ -112,7 +102,7 @@ class ReplayRunner:
         B = len(reads)
         self.B = B
         max_alen = max((len(a) for a in adapters), default=1)
-        self.A = dispatch._bucket_adapter_len(max(max_alen, 1))
+        self.A = dispatch.bucket_adapter_len(max(max_alen, 1))
 
         amat = np.full((len(adapters) + 1, self.A), 4, np.int8)
         alen = np.ones(len(adapters) + 1, np.int32)
@@ -134,7 +124,7 @@ class ReplayRunner:
         self._launches = []
         lo = 0
         while True:
-            L = dispatch._bucket_len(int(lens[order[lo]]) if lo < B else 1)
+            L = dispatch.bucket_len(int(lens[order[lo]]) if lo < B else 1)
             n = dispatch.bits_lanes(L, self.A)
             self._launches.append(_Launch(reads, np.sort(order[lo:lo + n]),
                                           L, dev))

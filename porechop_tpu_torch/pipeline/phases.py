@@ -27,7 +27,7 @@ from ..ops import spec
 from ..ops import middle
 from ..ops.dispatch import (AlignJobs, Product, score_path_available,
                             seqan_pct_vec, stats_path_active)
-from ..ops.kernels import score_prefilter_coef, supports
+from ..ops.kernels import score_prefilter_coef
 from ..utils import spans
 from ..utils.fastx import load_fasta_or_fastq
 from ..utils.text import bold_underline, int_to_str, print_table, red
@@ -722,39 +722,33 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
         apply_hit(ri, ai, rs, re, fp0[ri, ai])
         pend.append((ri, ai))           # re-align same adapter, now masked
 
-    # The device replay takes a replay set that clears the planner's
-    # hybrid threshold under a scheme the kernels take
-    # (porechop_tpu/pipeline/phases.py:608-613); the rest replays in host
-    # rounds.
-    use_device_replay = bool(pend) and supports(scoring_scheme_vals) and \
-        middle.should_use_device(
-            len(pend), max(len(masked[ri]) for ri, _ in pend),
-            max((len(a) for a in a_code_list), default=1))
+    # The device replay takes every replay set under a scheme the kernels
+    # take, unless the run is forced to the host; the rest replays in host
+    # rounds.  Both take each round's decisions from middle.replay_step.
+    use_device_replay = bool(pend) and middle.replays_on_device(
+        scoring_scheme_vals)
     while pend and not use_device_replay:
         # Host rounds (porechop_tpu/pipeline/phases.py:651-666): each round
-        # aligns every in-flight read's next job through AlignJobs, whose
-        # route the scheme and the launch size choose; the decisions are
-        # the device loop's below.
+        # aligns every in-flight read's next job through AlignJobs's host
+        # route.
+        lane_ai = np.array([ai for _, ai in pend], np.int64)
         res = AlignJobs([masked[ri] for ri, _ in pend], a_code_list,
                         np.column_stack([
-                            np.arange(len(pend), dtype=np.int64),
-                            np.array([ai for _, ai in pend], np.int64)]),
+                            np.arange(len(pend), dtype=np.int64), lane_ai]),
                         scoring_scheme_vals, device=device).run()
-        nxt = []
-        for n, (ri, ai) in enumerate(pend):
-            full_score = res['full_pct'][n]
-            if full_score >= middle_threshold:
-                apply_hit(ri, ai, int(res['read_start'][n]),
-                          int(res['read_end_excl'][n]), full_score)
-                nxt.append((ri, ai))
-            elif ai + 1 < n_ad:
-                nxt.append((ri, ai + 1))
-        pend = nxt
+        hit, nxt, live = middle.replay_step(res['full_pct'], lane_ai,
+                                            middle_threshold, n_ad)
+        for n in np.nonzero(hit)[0]:
+            apply_hit(pend[n][0], int(lane_ai[n]), int(res['read_start'][n]),
+                      int(res['read_end_excl'][n]), res['full_pct'][n])
+        pend = [(pend[n][0], int(nxt[n])) for n in np.nonzero(live)[0]]
 
     if pend:
         # Device-resident replay (ops/middle.py): the replay set's masked
         # reads upload ONCE; every round ships only (lane, adapter row,
-        # mask scalars) down and the 7-tuple fields back.
+        # mask scalars) down and the 7-tuple fields back.  apply_hit's
+        # mask of the host copy is not read again: the runner masks its
+        # own on the device (ms, me).
         runner = middle.ReplayRunner([masked[ri] for ri, _ in pend],
                                      a_code_list, scoring_scheme_vals,
                                      device=device)
@@ -768,21 +762,17 @@ def find_adapters_in_read_middles(reads, matching_sets, verbosity,
             res = runner.round(a_idx.astype(np.int32), ms, me)
             ms[:] = 0
             me[:] = 0
-            for n in np.nonzero(active)[0]:
-                ri, ai = lane_ri[n], int(lane_ai[n])
-                full_score = res['full_pct'][n]
-                if full_score >= middle_threshold:
-                    reads[ri].add_middle_hit(
-                        adapters[ai][0], int(res['read_start'][n]),
-                        int(res['read_end_excl'][n]), full_score,
-                        extra_trim_good_side, extra_trim_bad_side,
-                        start_sequence_names, end_sequence_names)
-                    ms[n] = int(res['read_start'][n])
-                    me[n] = int(res['read_end_excl'][n])
-                elif ai + 1 < n_ad:
-                    lane_ai[n] = ai + 1
-                else:
-                    active[n] = False
+            lanes = np.nonzero(active)[0]
+            hit, nxt, live = middle.replay_step(res['full_pct'][lanes],
+                                                lane_ai[lanes],
+                                                middle_threshold, n_ad)
+            for n in lanes[hit]:
+                ms[n] = int(res['read_start'][n])
+                me[n] = int(res['read_end_excl'][n])
+                apply_hit(lane_ri[n], int(lane_ai[n]), int(ms[n]),
+                          int(me[n]), res['full_pct'][n])
+            lane_ai[lanes] = nxt
+            active[lanes] = live
 
     if verbosity == 1:
         prog.finish()

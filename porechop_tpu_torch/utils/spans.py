@@ -36,7 +36,7 @@ kernels' clock.
 
 Off, span() and its kin return one shared no-op context manager: no
 clock read, no allocation, nothing kept.  Spans opened on a thread other
-than the job's (the size route's native worker) are not recorded.
+than the job's are not recorded.
 """
 
 from __future__ import annotations

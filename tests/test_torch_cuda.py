@@ -22,7 +22,6 @@ import math
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -675,57 +674,5 @@ def test_refused_scheme_launches_nothing_on_the_card(card, scheme):
     assert sum(kernels.LAUNCHES.values()) == 0
     want = dispatch.AlignJobs(windows, adapters, pairs, scheme,
                               device='cpu').run()
-    for f in want:
-        assert np.array_equal(got[f], want[f], equal_nan=True), f
-
-
-def test_native_batch_runs_beside_the_walks(card, monkeypatch):
-    """The size route's native batch runs on its worker thread while the
-    caller's thread enqueues the trace-bit launches and their walks and
-    waits for them at the harvest (the span of AlignJobs._run_device, from
-    the first launch to the last harvest's synchronisation), and the
-    result equals the route off (threshold 0).  All chunks are 32 lanes:
-    200,000 rung-150 jobs (116k cells each, under the threshold of 2e6)
-    for the native engine, 512 rung-2048 jobs (2.1e6 cells each) for the
-    card; the share model is kept from diverting by a slow host rate."""
-    monkeypatch.setattr(dispatch, '_CELL_BUDGET', 32 * 151 * 24)
-    monkeypatch.setattr(dispatch, '_HYBRID_CELLS', 2_000_000)
-    monkeypatch.setattr(dispatch.AlignJobs, '_HOST_CELLS_S', 1.0)
-    rng = np.random.default_rng(21)
-    adapters = [rng.integers(0, 4, 24).astype(np.int8),
-                rng.integers(0, 4, 30).astype(np.int8)]
-    windows = ([rng.integers(0, 4, 150).astype(np.int8)
-                for _ in range(200_000)]
-               + [rng.integers(0, 4, 2000).astype(np.int8)
-                  for _ in range(512)])
-    for w in windows[-512::7]:
-        w[100:130] = adapters[1]
-    pairs = np.column_stack([np.arange(len(windows)),
-                             [0] * 200_000 + [1] * 512])
-    spans = {'native': [], 'device': []}
-    native_batch = dispatch.AlignJobs._native_batch
-    run_device = dispatch.AlignJobs._run_device
-
-    def timed(kind, fn):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spans[kind].append((t0, time.perf_counter()))
-        return call
-    monkeypatch.setattr(dispatch.AlignJobs, '_native_batch',
-                        timed('native', native_batch))
-    monkeypatch.setattr(dispatch.AlignJobs, '_run_device',
-                        timed('device', run_device))
-    dispatch.reset_routes()
-    got = dispatch.AlignJobs(windows, adapters, pairs, device='cuda').run()
-    assert dispatch.ROUTES['native'][0] == 200_000
-    assert dispatch.ROUTES['device'][0] == 512
-    (n0, n1), = spans['native']
-    (d0, d1), = spans['device']
-    assert d0 < n1 and n0 < d1, spans
-    monkeypatch.setattr(dispatch, '_HYBRID_CELLS', 0)
-    want = dispatch.AlignJobs(windows, adapters, pairs, device='cuda').run()
     for f in want:
         assert np.array_equal(got[f], want[f], equal_nan=True), f

@@ -109,12 +109,14 @@ def test_bits_lanes_fit_the_budget(lb, amax):
 
 
 @pytest.mark.parametrize('scoring', [(3, -6, -2, -5), (2, -3, -3, -3)])
-def test_unported_shapes_and_schemes_raise(scoring, monkeypatch):
+@pytest.mark.parametrize('mode', MODES)
+def test_unported_shapes_and_schemes_raise(scoring, mode, monkeypatch):
     """Nothing raises for a scheme any more: the route is chosen by the
     scheme.  A scheme the kernels refuse (Gotoh with gap_open > gap_ext,
     and linear) runs on the host, launches no kernel and no plain version,
-    and gives the executable spec's results, as the JAX package does, in
-    every mode."""
+    and gives the JAX package's results in every mode (under the
+    prefilter, which lanes pass and their values), and in the full run
+    the executable spec's."""
     rng = np.random.default_rng(12)
     adapters = [rng.integers(0, 4, n).astype(np.int8) for n in (24, 18)]
     windows = [rng.integers(0, 5, n).astype(np.int8) for n in (60, 90, 40)]
@@ -130,22 +132,75 @@ def test_unported_shapes_and_schemes_raise(scoring, monkeypatch):
         monkeypatch.setattr(kernels, name + '_plain', refused)
     port = dispatch.AlignJobs(windows, adapters, pairs, scoring, device='cpu')
     jax = jax_dispatch.AlignJobs(windows, adapters, pairs, scoring)
-    got, want = port.run(), jax.run()
-    for f in FIELDS + ('read_end_excl', 'full_pct', 'partial_pct'):
-        assert np.array_equal(got[f], want[f], equal_nan=True), f
+    args = (groups, 2) if mode.startswith('run_group') else ()
+    if mode == 'run_stats_prefilter':
+        got, want = (j.run_stats(prefilter=90.0) for j in (port, jax))
+    else:
+        got, want = (getattr(j, mode)(*args) for j in (port, jax))
+    if not isinstance(got, dict):
+        got, want = {'': got}, {'': want}
+    assert set(got) == set(want)
+    hit = ...
+    if mode == 'run_stats_prefilter':
+        hit = want['full_pct'] >= 90.0
+        assert hit.any() and not hit.all()
+        assert np.array_equal(got['full_pct'] >= 90.0, hit)
+    for f in got:
+        assert np.array_equal(got[f][hit], want[f][hit], equal_nan=True), f
+    if mode != 'run':
+        return
     codes = 'ACGTN'
     for k, (w, a) in enumerate(pairs[:-2]):
         s = jax_spec.align_stats(''.join(codes[c] for c in windows[w]),
                                  ''.join(codes[c] for c in adapters[a]),
                                  scoring)
         assert [got[f][k] for f in FIELDS] == [getattr(s, f) for f in FIELDS]
-    for mode, args in (('run_stats', ()), ('run_group_max', (groups, 2)),
-                       ('run_group_score_max', (groups, 2))):
-        g, w = (getattr(j, mode)(*args) for j in (port, jax))
-        if not isinstance(g, dict):
-            g, w = {'': g}, {'': w}
-        for f in g:
-            assert np.array_equal(g[f], w[f]), (mode, f)
+
+
+def _rung_jobs(amax, seed):
+    """AlignJobs inputs whose adapters all pad to adapter rung amax (16:
+    9 to 16 bases; 96: 65 to 96), against windows of rungs 150 and 1,024,
+    one of them empty, a third carrying a copy of an adapter with one
+    base in twenty (at least one) drawn anew."""
+    rng = np.random.default_rng(seed)
+    lens = (9, 16, 13) if amax == 16 else (96, 65, 81)
+    adapters = [rng.integers(0, 4, n).astype(np.int8) for n in lens]
+    windows = []
+    for k in range(12):
+        n = (150, 1000)[k % 2]
+        w = rng.integers(0, 5 if k % 5 == 0 else 4, n).astype(np.int8)
+        if k % 3 == 0:
+            a = adapters[k % len(adapters)].copy()
+            m = max(1, len(a) // 20)
+            a[rng.integers(0, len(a), m)] = rng.integers(0, 4, m)
+            pos = int(rng.integers(0, n - len(a)))
+            w[pos:pos + len(a)] = a
+        windows.append(w)
+    windows.append(np.zeros(0, np.int8))
+    pairs = np.array([(w, a) for w in range(len(windows))
+                      for a in range(len(adapters))], np.int64)
+    assert {dispatch.bucket_adapter_len(n) for n in lens} == {amax}
+    groups = (pairs[:, 0] % 3) * len(adapters) + pairs[:, 1]
+    return windows, adapters, pairs, groups, 3 * len(adapters)
+
+
+@pytest.mark.parametrize('amax', [16, 96])
+@pytest.mark.parametrize('mode', MODES)
+def test_modes_at_adapter_rungs_match_jax(mode, amax):
+    """Every planner mode on the CPU entries at adapter rung 16 (the
+    narrowest) and 96 (the barcoded sets' rung) equals the JAX package's
+    planner; under the prefilter, the passing lanes' values."""
+    jobs = _rung_jobs(amax, amax + len(mode))
+    got = run_mode(mode, jobs, 'cpu')
+    want = run_mode(mode, jobs, None, jax_dispatch.AlignJobs)
+    assert set(got) == set(want)
+    hit = ...
+    if mode == 'run_stats_prefilter':
+        hit = want['full_pct'] >= 90.0
+        assert hit.any() and not hit.all()
+        assert np.array_equal(got['full_pct'] >= 90.0, hit)
+    for f in got:
+        assert np.array_equal(got[f][hit], want[f][hit], equal_nan=True), f
 
 
 def _count_launches(monkeypatch):
@@ -164,9 +219,10 @@ def _count_launches(monkeypatch):
     spy(mesh, 'launch_shards', 'port')
     spy(jax_dispatch.AlignJobs, '_launch_chunk_gather', 'jax')
     spy(jax_dispatch.AlignJobs, '_run_chunk', 'jax')
-    # As the port's defaults: no size route, no work share with the
-    # native engine and no adapter-rung merge.
-    monkeypatch.setenv('PORECHOP_TPU_NO_NATIVE', '1')
+    # As the port plans: no size route, no work share with the native
+    # engine and no adapter-rung merge.
+    monkeypatch.setattr(jax_dispatch.AlignJobs, '_native_available',
+                        lambda self: False)
     monkeypatch.setattr(jax_dispatch.AlignJobs, '_MERGE_CELLS_PER_LAUNCH', 0)
     return counts
 

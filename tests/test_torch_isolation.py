@@ -40,7 +40,7 @@ def test_source_has_no_jax_or_porechop_tpu_import():
 
 
 @pytest.mark.parametrize('script', ['chip_smoke.py', 'profile_torch.py',
-                                    'time_kernels.py', 'breakeven_torch.py',
+                                    'time_kernels.py',
                                     'stretch_torch.py', 'bench_torch.py'])
 def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
     """The scripts run on the card's machine, which has no jax."""
@@ -50,9 +50,9 @@ def test_card_scripts_have_no_jax_or_porechop_tpu_import(script):
 def test_port_runs_with_jax_and_porechop_tpu_blocked():
     """In a fresh interpreter where importing jax or porechop_tpu fails,
     the port imports every module and aligns on the CPU: on the kernels'
-    plain versions over two device entries, on the native host engine
-    (built from the port's own sources), on the linear spec and on the v1
-    engine, and runs the dry run (entry.py) on two CPU entries; importing
+    plain versions over two device entries and over one, on the native
+    host engine (built from the port's own sources) and on the linear
+    spec, and runs the dry run (entry.py) on two CPU entries; importing
     the package leaves the allocator untuned (cli.main tunes it)."""
     code = '\n'.join([
         'import sys',
@@ -61,7 +61,7 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
         'import numpy as np',
         'import porechop_tpu_torch.cli',
         'from porechop_tpu_torch import native',
-        'from porechop_tpu_torch.ops import dispatch, engine_v1, spec',
+        'from porechop_tpu_torch.ops import dispatch, spec',
         'from porechop_tpu_torch.utils import malloc_tune',
         'from porechop_tpu_torch.parallel import mesh',
         "w = [spec.encode('TTTAATGTACTTCGTTCAGTTACGTATTGCTGGG')]",
@@ -71,8 +71,9 @@ def test_port_runs_with_jax_and_porechop_tpu_blocked():
         "                           device='cpu,cpu').run()",
         "    assert r['full_pct'][0] == 100.0, (scheme, r)",
         "assert native.library()._name.startswith(str(native.BUILD_DIR))",
-        "r = engine_v1.align_batch(np.zeros((1, 8), np.int8), [8],",
-        "                          np.zeros((1, 4), np.int8), [4])",
+        "r = dispatch.AlignJobs([np.zeros(8, np.int8)],",
+        "                       [np.zeros(4, np.int8)], [(0, 0)],",
+        "                       device='cpu').run()",
         "assert r['matches'][0] == 4, r",
         "assert not malloc_tune._done",
         'from porechop_tpu_torch import entry',

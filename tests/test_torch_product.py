@@ -230,10 +230,9 @@ def test_product_launches_as_its_flat_pairs(monkeypatch, mode, device):
         P - 7 * 16 - (90 - 16) * 1)
 
 
-def test_product_expands_where_it_cannot_run_axis_by_axis(monkeypatch):
-    """A row whose windows differ in length, a window rung past the group
-    max's, and the v1 engine take the flat pairs, with the flat pairs'
-    results."""
+def test_product_expands_where_it_cannot_run_axis_by_axis():
+    """A row whose windows differ in length and a window rung past the
+    group max's take the flat pairs, with the flat pairs' results."""
     rng = np.random.default_rng(2)
     adapters = [rng.integers(0, 4, n).astype(np.int8) for n in (22, 30)]
     cases = {'uneven': (100, 90), 'long': (1800, 1800)}
@@ -250,12 +249,6 @@ def test_product_expands_where_it_cannot_run_axis_by_axis(monkeypatch):
                                       jobs.group_ids(), 3)
         for f in want:
             assert np.array_equal(got[f], want[f]), (name, f)
-    monkeypatch.setenv('PORECHOP_TPU_ENGINE', 'v1')
-    windows = [rng.integers(0, 4, 80).astype(np.int8) for _ in range(4)]
-    jobs = dispatch.Product(np.arange(4).reshape(2, 2), [0, 1], [0, 1],
-                            [0, 1])
-    assert dispatch.AlignJobs(windows, adapters, jobs,
-                              device='cpu')._product_lens(1536) is None
 
 
 def test_product_pairs_are_detection_read_major_pairs():

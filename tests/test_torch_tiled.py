@@ -254,7 +254,7 @@ def test_replay_rounds_split_under_the_bits_budget_match_jax(monkeypatch,
         ms = np.where(got['read_start'] >= 0, got['read_start'],
                       0).astype(np.int32)
         me = got['read_end_excl'].astype(np.int32)
-    second_rung = dispatch._bucket_len(int(lens[second].max()))
+    second_rung = dispatch.bucket_len(int(lens[second].max()))
     assert tiled_calls == [(32, 24_576), (32, second_rung)] * 2
 
 
