@@ -23,10 +23,13 @@ harvested (padded cells/s) and native batches; inside a CLI job it also
 records the planner's spans (utils/spans.py: `plan` around the public
 run methods, `host_route`, `upload` and, through mesh.launch_lanes,
 `enqueue`; `wait` at every copy back) and counts a product's lanes
-(`planner.product_lanes`).
+(`planner.product_lanes`) and the score prefilter's sub-window lanes and
+long survivors (`planner.subwindow_lanes`, `planner.long_survivors`).
 Which kernel execution a job takes (group max, per-lane stats, score only,
 or bitmap forward plus walk) depends on the mode and the shape; the device
-only decides whether the kernels or their plain versions run.
+only decides whether the kernels or their plain versions run.  The score
+prefilter scores a window past the bitless kernels' widest rung in
+overlapping sub-windows (AlignJobs._run_stats_prefiltered).
 
 Device entries (resolve_devices): each launch's padded lanes split,
 contiguous and as even as possible, over the entries (parallel/mesh.py
@@ -220,6 +223,59 @@ def _pad_cells(lb: int, amax: int, n: int) -> int:
     return bucket_lanes(n) * (lb + 1) * amax if n else 0
 
 
+# The widest window rung of the bitless kernels (L + 1 <= MAX_L1P): the
+# width of the score prefilter's sub-windows.
+SCORE_RUNG = max(r for r in _LADDER if r + 1 <= kernels.MAX_L1P)
+
+
+def subwindow_overlap(amax: int, scoring):
+    """W(A): the read bases by which consecutive sub-windows of a long
+    window overlap in the score prefilter's pass, for adapter rung amax
+    under `scoring`; None where no such bound exists (the best column
+    score top = max(match, mismatch) <= 0, or a gap base that costs
+    nothing).
+
+    Soundness.  Take an alignment of an adapter of alen <= amax bases that
+    scores at least coef x alen > 0 (the prefilter's bar,
+    kernels.score_prefilter_coef).  It pairs m + x read bases with
+    adapter bases (matches and mismatches, m + x <= alen) and leaves g
+    read bases in gaps of the adapter; end gaps take no read base of its
+    span.  A column scores at most top, and a read base in a gap costs at
+    least gmin = min(-gap_open, -gap_ext) (the open for the first base of
+    a gap, the extension for the rest), so 0 < score <= top (m + x) -
+    gmin g: g < top alen / gmin, and the alignment spans m + x + g <=
+    alen (1 + top / gmin) <= W read bases.  Sub-windows that overlap by W
+    hold every span of at most W bases whole, and a sub-window's DP is
+    the whole read's on that slice, with the same free row 0: a path
+    inside it scores there what it scores in the whole read.  So the
+    maximum over the sub-windows is at least the whole read's optimum
+    wherever that optimum reaches the bar, and a maximum below the bar
+    certifies the pair.  A sub-window's first and last columns are read
+    ends that the whole read lacks, where an alignment may start or end
+    with free adapter end gaps, so its maximum can exceed the whole
+    read's optimum: that loses certifications and makes no wrong one.
+    The maximum serves the bound only and is never a pair's result."""
+    match, mismatch, gap_open, gap_ext = scoring
+    top = max(match, mismatch)
+    gmin = min(-gap_open, -gap_ext)
+    if top <= 0 or gmin <= 0:
+        return None
+    return amax + -(-amax * top // gmin)
+
+
+def subwindows(lens, width: int, overlap: int):
+    """(count, length) of the sub-windows of windows of lengths `lens`:
+    count = 1 + ceil((len - width) / (width - overlap)) past width, else
+    1, of equal length ceil((len + (count - 1) overlap) / count) <= width.
+    Sub-window k starts at min(k (length - overlap), len - length), so
+    consecutive ones overlap by at least `overlap` bases and the last
+    ends at the window's end."""
+    lens = np.asarray(lens, dtype=np.int64)
+    step = width - overlap
+    n = 1 + np.maximum(0, -(-(lens - width) // step))
+    return n, -(-(lens + (n - 1) * overlap) // n)
+
+
 def _buckets(todo, pw, pa) -> dict:
     """{(window rung, adapter rung): job indices} of the jobs `todo`
     (window lengths pw, adapter lengths pa): adapters pad to their rung,
@@ -374,6 +430,8 @@ class AlignJobs:
         self._score_lanes = None    # (P,) bool: lanes with score-only results
         self._gscore = None         # (group_ids, n_groups) group-score mode
         self._gsacc = None          # (n_groups,) int64 max-score fold
+        self._overlap = None        # score prefilter: sub-window overlap
+        self._sub_n = None          # (P,) sub-windows of each pair's window
 
     @property
     def pairs(self) -> np.ndarray:
@@ -517,17 +575,36 @@ class AlignJobs:
         pairs, then an exact stats pass over the (typically chimera-rate)
         survivors.  Soundness: a lane's best score below coef * adapter_len
         proves its full-span identity is below the threshold, so rejected
-        lanes' full_pct = 0.0 compares identically against the threshold."""
+        lanes' full_pct = 0.0 compares identically against the threshold.
+
+        On the kernels, a window longer than SCORE_RUNG (past the bitless
+        kernels) is scored in sub-windows of at most SCORE_RUNG bases that
+        overlap by subwindow_overlap(A) (its docstring holds the proof),
+        cut on the device from the window table, and the pair takes the
+        maximum over them for the bound; the survivors re-run exactly
+        (run_stats), long ones through the trace-bit forward and the walk.
+        Where the overlap has no bound, or one past half of SCORE_RUNG
+        (the sub-windows would more than double the cells), long windows
+        run the trace-bit forward and the walk in this pass and keep
+        their full results."""
         P = len(self.pairs)
         self._score_only = True
         self._score_lanes = np.zeros(P, dtype=bool)
         self._stats_failed = np.zeros(P, dtype=bool)
+        alens = np.array([len(a) for a in self.adapters], dtype=np.int64)
+        if P and not force_host() and kernels.supports(self.scoring):
+            w = subwindow_overlap(bucket_adapter_len(
+                max(int(alens[self.pairs[:, 1]].max()), 1)), self.scoring)
+            if w is not None and 2 * w <= SCORE_RUNG:
+                self._overlap = w
         try:
             res = self.run(progress=progress)
         finally:
             self._score_only = False
             score_lanes, self._score_lanes = self._score_lanes, None
             failed, self._stats_failed = self._stats_failed, None
+            overlap, self._overlap = self._overlap, None
+            self._sub_n = None
         failed |= res['read_start'] == -1
 
         # Lanes that ran a full alignment (the native engine's full entry
@@ -538,10 +615,14 @@ class AlignJobs:
         matches = np.where(~score_lanes, res['matches'], 0)
         full_len = np.where(~score_lanes, np.maximum(res['full_len'], 1), 1)
 
-        pa = np.array([len(a) for a in self.adapters],
-                      dtype=np.int64)[self.pairs[:, 1]]
+        pa = alens[self.pairs[:, 1]]
         cand = (score_lanes & ~failed
                 & (res['raw_score'].astype(np.float64) >= coef * pa))
+        if overlap is not None:
+            long = np.array([len(w) for w in self.windows],
+                            dtype=np.int64)[self.pairs[:, 0]] > SCORE_RUNG
+            if long.any():
+                spans.count('planner.long_survivors', int((cand & long).sum()))
         if cand.any():
             idx = np.nonzero(cand)[0]
             sub = AlignJobs(self.windows, self.adapters, self.pairs[idx],
@@ -598,6 +679,8 @@ class AlignJobs:
             progress(todo)
             return self._package(out)
 
+        if self._overlap is not None:
+            self._sub_n = subwindows(pw, SCORE_RUNG, self._overlap)[0]
         work = [(lb, amax, chunk)
                 for (lb, amax), idxs in sorted(buckets.items())
                 for chunk in self._chunk_split(np.asarray(idxs), lb, amax)]
@@ -622,8 +705,7 @@ class AlignJobs:
         self._launch_all(work, launch, harvest)
         return self._package(out)
 
-    @staticmethod
-    def _launch_all(work, launch, harvest):
+    def _launch_all(self, work, launch, harvest):
         """Enqueues every (lb, amax, chunk) launch of `work`
         (launch(lb, amax, chunk) returns its handle), then harvests them in
         order (harvest(lb, amax, chunk, handle)), with the planner's
@@ -642,7 +724,8 @@ class AlignJobs:
             harvest(lb, amax, chunk, handle)
         if timing() and pending:
             dt = time.perf_counter() - t0
-            cells = sum(_pad_cells(lb, amax, len(c)) for lb, amax, c in work)
+            cells = sum(_pad_cells(*self._launch_shape(lb, amax, c), amax)
+                        for lb, amax, c in work)
             _timing_line('harvested %d launches in %.3fs (%.2e cells/s '
                          'incl. enqueue-overlap)'
                          % (len(pending), dt, cells / max(dt, 1e-9)))
@@ -799,18 +882,33 @@ class AlignJobs:
             for h in shards:
                 np.maximum(self._gsacc, _host(h), out=self._gsacc)
 
-    @staticmethod
-    def _count(route, work, padded=False):
+    def _count(self, route, work, padded=False):
         """Adds the (lb, amax, jobs) work to ROUTES[route]: jobs, and cells
-        at the rungs (lanes padded to the launch width when `padded`)."""
+        at the launches' rungs (lanes padded to the launch width when
+        `padded`)."""
         for lb, amax, chunk in work:
-            n = bucket_lanes(len(chunk)) if padded else len(chunk)
+            L, n = self._launch_shape(lb, amax, chunk)
             ROUTES[route][0] += len(chunk)
-            ROUTES[route][1] += n * (lb + 1) * amax
+            ROUTES[route][1] += (bucket_lanes(n) if padded else n) * (
+                L + 1) * amax
+
+    def _launch_shape(self, lb, amax, chunk):
+        """(window rung, lanes) of the launch of a chunk of jobs at rungs
+        (lb, amax): a sub-window rung's launch takes the chunk's
+        sub-windows at SCORE_RUNG."""
+        if self._is_subwindow_rung(lb):
+            return SCORE_RUNG, int(self._sub_n[chunk].sum())
+        return lb, len(chunk)
 
     def _is_groupmax_rung(self, lb) -> bool:
         """Chunks of this window rung launch through the group max."""
         return self._group is not None and lb <= self._GROUP_MAX_RUNG
+
+    def _is_subwindow_rung(self, lb) -> bool:
+        """Chunks of this window rung, past the bitless kernels, launch
+        their sub-windows through the score-only kernel (the score
+        prefilter's pass, _run_stats_prefiltered)."""
+        return self._overlap is not None and lb + 1 > kernels.MAX_L1P
 
     def _is_stats_rung(self, lb) -> bool:
         """Chunks of this window rung launch through the per-lane stats
@@ -828,6 +926,16 @@ class AlignJobs:
         return bits_lanes(lb, amax)
 
     def _chunk_split(self, idxs, lb, amax):
+        """The jobs idxs of one bucket in launches of _per_launch lanes; at
+        a sub-window rung, whole jobs whose sub-windows fill at most
+        _per_launch(SCORE_RUNG, amax) lanes."""
+        if self._is_subwindow_rung(lb):
+            n = self._sub_n[idxs]
+            per = max(1, self._per_launch(SCORE_RUNG, amax) - int(n.max())
+                      + 1)
+            cut = np.nonzero(np.diff((np.cumsum(n) - 1) // per))[0] + 1
+            yield from np.split(idxs, cut)
+            return
         per_launch = self._per_launch(lb, amax)
         for lo in range(0, len(idxs), per_launch):
             yield idxs[lo:lo + per_launch]
@@ -912,6 +1020,9 @@ class AlignJobs:
         chunk's padded lanes split over the device entries
         (mesh.launch_shards).  Returns (kind, per-shard handles, the lanes'
         window and adapter lengths) for _harvest."""
+        if self._is_subwindow_rung(lb):
+            return self._launch_subwindows(chunk, lb, amax, tables, rung_w,
+                                           rung_a)
         B = len(chunk)
         Bp = bucket_lanes(B)
         if self._is_groupmax_rung(lb):
@@ -948,6 +1059,58 @@ class AlignJobs:
                                     lens=(wlen_host, alen_host))
         return kind, shards, (wlen_host[w_idx[:B]], alen_host[a_idx[:B]])
 
+    def _launch_subwindows(self, chunk, lb, amax, tables, rung_w, rung_a):
+        """Enqueues one chunk of a sub-window rung through the score-only
+        kernel, one lane for each sub-window of each job's window
+        (subwindows, at SCORE_RUNG).  Each device cuts the sub-window
+        table from the rung's window table (engine_v2.subwindow_table) by
+        every sub-window's (row, offset) and length, built once per rung,
+        so only those and the lane indices go up beside the windows.
+        Returns ('sub', per-shard handles, (each job's first lane, lanes))
+        for _harvest."""
+        wtab, _, wlen_host, wmap = self._table(tables, 'w', lb, rung_w[lb])
+        atab, alen, alen_host, amap = self._table(tables, 'a', amax,
+                                                  rung_a[amax])
+        if ('s', lb) not in tables:
+            lens = wlen_host[:-1].astype(np.int64)
+            n, size = subwindows(lens, SCORE_RUNG, self._overlap)
+            first = np.cumsum(n) - n
+            row = np.repeat(np.arange(len(n)), n)
+            off = np.minimum((np.arange(len(row)) - first[row])
+                             * (size - self._overlap)[row],
+                             (lens - size)[row])
+            # The last sub-window row cuts the window table's dummy row.
+            cut = np.stack((np.append(row, len(n)), np.append(off, 0)))
+            sub_len = np.append(size[row], 1).astype(np.int32)
+            tables[('s', lb)] = (first, n, torch.from_numpy(cut),
+                                 torch.from_numpy(sub_len), sub_len)
+        first, n, cut, sub_len, sub_len_host = tables[('s', lb)]
+        wrow = wmap[self.pairs[chunk, 0]]
+        cnt = n[wrow]
+        starts = np.cumsum(cnt) - cnt
+        total = int(cnt.sum())
+        job = np.repeat(np.arange(len(chunk)), cnt)
+        w_idx = np.full(bucket_lanes(total), len(sub_len_host) - 1,
+                        dtype=np.int64)
+        a_idx = np.full(len(w_idx), atab.shape[0] - 1, dtype=np.int64)
+        w_idx[:total] = first[wrow][job] + np.arange(total) - starts[job]
+        a_idx[:total] = amap[self.pairs[chunk, 1]][job]
+        spans.count('planner.subwindow_lanes', total)
+
+        def on(dev):
+            if ('s', lb, dev) not in tables:
+                lens = sub_len.to(dev)
+                tables[('s', lb, dev)] = (
+                    engine_v2.subwindow_table(wtab.to(dev), cut.to(dev),
+                                              lens, SCORE_RUNG), lens)
+            if ('a', amax, dev) not in tables:
+                tables[('a', amax, dev)] = (atab.to(dev), alen.to(dev))
+            return tables[('s', lb, dev)] + tables[('a', amax, dev)]
+        shards = mesh.launch_shards('sc', self.devices, on, w_idx, a_idx,
+                                    self.scoring,
+                                    lens=(sub_len_host, alen_host))
+        return 'sub', shards, (starts, total)
+
     def _harvest(self, chunk, handle, out):
         """Blocks on a _launch_chunk handle and scatters results, shard by
         shard in lane order."""
@@ -963,6 +1126,15 @@ class AlignJobs:
         if kind in ('gm', 'gsc'):
             self._fold(kind, shards)
             self._dev_grouped[chunk] = True
+            return
+        if kind == 'sub':
+            # Each job's score is the maximum over its sub-windows' lanes.
+            starts, total = lens
+            best = np.concatenate([_host(h[0]) for h in shards])[:total]
+            ok = np.concatenate([to_np(h[1]) for h in shards])[:total]
+            out['raw_score'][chunk] = np.maximum.reduceat(best, starts)
+            self._stats_failed[chunk] = ~np.logical_or.reduceat(ok, starts)
+            self._score_lanes[chunk] = True
             return
         if kind == 'st':
             out['matches'][chunk] = cat(0)

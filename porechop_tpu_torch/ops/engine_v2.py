@@ -182,6 +182,18 @@ def _gather(wtab, wlens, atab, alens, w_idx, a_idx):
             atab.index_select(0, a_idx), alens.index_select(0, a_idx))
 
 
+def subwindow_table(wtab, cut, lens, width):
+    """Sub-windows of the window table wtab's rows, on its device: row k
+    holds lens[k] bases of row cut[0, k] from column cut[1, k], then N
+    (code 4) to `width` columns.  A strided gather: every offset of a
+    row is a view of it (unfold), so no window is copied from the host
+    again."""
+    padded = torch.nn.functional.pad(wtab, (0, width), value=4)
+    sub = padded.unfold(1, width, 1)[cut[0], cut[1]]
+    col = torch.arange(width, device=sub.device)
+    return sub.masked_fill_(col >= lens[:, None], 4)
+
+
 def stats_fwd(reads, rl, adps, al, scoring):
     """Per-lane (matches, full_len, ok) from the stat-carrying kernel."""
     _, _, _, mat, fl = kernels.forward_stats(reads, rl, adps, al, *scoring)

@@ -23,9 +23,12 @@ A job is one cli.main call.  Inside it:
   the caller holds (`enqueue(...)`), never read back from the card;
 - counters, summed over the job: `endtrim.pairs_decided` (the pairs
   phase 2 decides over whole result arrays), `endtrim.pairs_passed`
-  (those that pass and are written to their read one by one) and
+  (those that pass and are written to their read one by one),
   `planner.product_lanes` (the lanes of products of jobs whose indices
-  the devices computed, ops/dispatch.py).
+  the devices computed, ops/dispatch.py), `planner.subwindow_lanes` (the
+  score prefilter's lanes of sub-windows of windows past the bitless
+  kernels) and `planner.long_survivors` (the pairs of such windows that
+  the prefilter's bound leaves for the exact re-run).
 
 Each job leaves one record in a buffer of the last JOBS_KEPT jobs
 (last_jobs), also when it fails, and a summary on stderr, one `[spans]`

@@ -462,6 +462,43 @@ def test_cli_on_card_matches_cpu(card, tmp_path):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize('A', [24, 33, 66])  # sub-window lanes at AMAX 32-96
+def test_long_prefilter_on_the_card_matches_cpu(card, A):
+    """The score prefilter's sub-window pass over windows past SCORE_RUNG
+    (16,400-40,000 bp, adapter copies at the cuts and the ends): the
+    sub-window table cut on the card equals the CPU's, and the card's
+    prefiltered stats equal the CPU run's on every lane."""
+    rng = np.random.default_rng(A)
+    adapters = [rng.integers(0, 4, n).astype(np.int8) for n in (A, A - 4)]
+    overlap = dispatch.subwindow_overlap(dispatch.bucket_adapter_len(A),
+                                         SCHEME)
+    windows = []
+    for length in (16_400, 24_700, 40_000, 13_000, 900):
+        w = rng.integers(0, 4, length).astype(np.int8)
+        (n,), (size,) = dispatch.subwindows([length], dispatch.SCORE_RUNG,
+                                            overlap)
+        starts = [k * (size - overlap) - A // 2 for k in range(1, n)]
+        for k, s in enumerate(starts + [length - A]):
+            a = adapters[k % 2].copy()
+            a[rng.integers(0, len(a))] = rng.integers(0, 4)
+            w[s:s + len(a)] = a
+        windows.append(w)
+    tab = torch.from_numpy(np.stack([w[:900] for w in windows]))
+    cut = torch.tensor([[0, 1, 4, 2], [0, 17, 100, 899]])
+    lens = torch.tensor([900, 500, 800, 1], dtype=torch.int32)
+    want = engine_v2.subwindow_table(tab, cut, lens, 1_024)
+    got = engine_v2.subwindow_table(tab.to(card), cut.to(card),
+                                    lens.to(card), 1_024)
+    assert torch.equal(got.cpu(), want)
+    pairs = np.array([(w, a) for w in range(len(windows))
+                      for a in range(len(adapters))], np.int64)
+    res = [dispatch.AlignJobs(windows, adapters, pairs, device=d)
+           .run_stats(prefilter=90.0) for d in ('cpu', card)]
+    for f in ('full_pct', 'matches', 'full_len'):
+        assert np.array_equal(res[0][f], res[1][f]), f
+    assert (res[1]['full_pct'] >= 90.0).any()
+
+
 def test_port_kernels_start_inside_their_enqueue_spans(card, tmp_path,
                                                        monkeypatch):
     """A CLI run on the card under PORECHOP_TPU_TIMING and

@@ -16,12 +16,13 @@ import os
 import threading
 import types
 
+import numpy as np
 import pytest
 import torch
 
 import porechop_tpu.cli as jax_cli
 import porechop_tpu_torch.cli as torch_cli
-from porechop_tpu_torch.ops import kernels
+from porechop_tpu_torch.ops import dispatch, kernels
 from porechop_tpu_torch.utils import spans
 from porechop_tpu_torch.utils.synth import (synth_barcoded, synth_reads,
                                              write_fastq)
@@ -217,6 +218,51 @@ def test_launch_cells_equal_the_harness_wrapper(inputs, tmp_path,
         share[metric] = mod.read({'jobs': 1, 'launches': theirs})
     assert share['planner.useful_cell_share'] == pytest.approx(
         share['dispatch.useful_cell_share'], abs=1e-9)
+
+
+def test_long_read_counts_its_subwindow_lanes_and_survivors(tmp_path,
+                                                            monkeypatch):
+    """A traced CPU job with one chimeric read past SCORE_RUNG: the middle
+    pass's score prefilter counts a lane for each sub-window of each of
+    the read's pairs (planner.subwindow_lanes) and the long pairs the
+    bound leaves for the exact re-run (planner.long_survivors), at least
+    the chimera's hits; the `[spans]` summary prints both."""
+    reads = synth_reads(6, 900, seed=4, chimera_rate=0.0)
+    (_, seq, quals), = synth_reads(1, 14_000, seed=6, chimera_rate=1.0)
+    reads.append(('long_read', seq, quals))
+    write_fastq(str(tmp_path / 'reads.fastq'), reads)
+    seen = []
+    real = dispatch.AlignJobs._run_stats_prefiltered
+
+    def watched(self, coef, progress):
+        res = real(self, coef, progress)
+        lens = np.array([len(w) for w in self.windows])[self.pairs[:, 0]]
+        long = lens > dispatch.SCORE_RUNG
+        amax = dispatch.bucket_adapter_len(max(len(a)
+                                               for a in self.adapters))
+        n, _ = dispatch.subwindows(lens[long], dispatch.SCORE_RUNG,
+                                   dispatch.subwindow_overlap(amax,
+                                                              self.scoring))
+        seen.append((int(n.sum()), int(long.sum()),
+                     int((res['full_pct'][long] >= 90.0).sum())))
+        return res
+    monkeypatch.setattr(dispatch.AlignJobs, '_run_stats_prefiltered',
+                        watched)
+    monkeypatch.setenv('PORECHOP_TPU_TIMING', '1')
+    _, err, _ = _run(torch_cli.main, tmp_path / 'run',
+                     ['-i', str(tmp_path / 'reads.fastq'), '-o', 'out.fastq',
+                      '-t', '2'], device='cpu')
+    (lanes, pairs, hits), = seen
+    (rec,) = spans.last_jobs(1)
+    counts = rec['counts']
+    assert lanes == 2 * pairs > 0 and hits > 0
+    assert counts['planner.subwindow_lanes'] == lanes
+    assert hits <= counts['planner.long_survivors'] <= pairs
+    head = '[spans] job %d count ' % rec['job']
+    lines = err.splitlines()
+    assert head + 'planner.subwindow_lanes %d' % lanes in lines
+    assert (head + 'planner.long_survivors %d'
+            % counts['planner.long_survivors']) in lines
 
 
 def test_profile_trace_holds_the_spans_as_nested_ranges(inputs, tmp_path,

@@ -169,8 +169,9 @@ def test_long_windows_match_jax(mode, tiled_calls):
         assert np.array_equal(got, want)
     else:
         # Under a prefilter only full_pct >= threshold and the passing
-        # lanes' values are specified: long rungs run the full walk here
-        # (as on a TPU) and the JAX package's CPU path scores them first.
+        # lanes' values are specified: long rungs are scored in
+        # sub-windows and only the pairs that survive the bound run the
+        # full walk here; the JAX package's CPU path scores them whole.
         prefilter = 90.0 if mode == 'run_stats_prefilter' else None
         got, want = (j.run_stats(prefilter=prefilter) for j in jobs)
         hit = want['full_pct'] >= 90.0
@@ -182,6 +183,7 @@ def test_long_windows_match_jax(mode, tiled_calls):
                 assert np.array_equal(got[f], want[f]), f
     # The 900 bp window (rung 1,024) takes the trace-bit forward only in
     # run mode; the stats and score modes keep it on their own kernels.
+    # Under the prefilter both long rungs reach it through survivors.
     long_rungs = [24_576, 32_768]
     assert sorted({shape[1] for shape in tiled_calls}) == (
         [1_024] + long_rungs if mode == 'run' else long_rungs)
